@@ -3,26 +3,46 @@
 
 Phases (each raises on failure; nothing is caught and turned into exit 0):
   1. build   — the banded-extension kernel K1 (tpubwa_torch/csrc/
-               ksw_extend.cu, nvcc for sm_90a) and the native oracle
-               (native/*.cpp, g++), both from this checkout, in parallel;
-  2. parity  — K1 against its plain PyTorch version ksw_extend_ref on the
-               card, bit-equal (tolerance 0: integer scores and
-               coordinates), over the Q x T envelope, the production N
-               shapes and the narrow band + z-drop case; per shape the
-               kernel time, the plain time and the bound;
-  3. e2e     — streamed single-end alignment (BASELINE config 1) of 100 bp
+               ksw_extend.cu), the local-alignment kernel K2 (csrc/
+               ksw_local.cu), both nvcc for sm_90a, and the native oracle
+               (native/*.cpp, g++), all from this checkout, in parallel;
+  2. parity  — each kernel against its plain PyTorch version on the card,
+               bit-equal (tolerance 0: integer scores and coordinates):
+               K1 against ksw_extend_ref over the Q x T envelope, the
+               production N shapes and the narrow band + z-drop case; K2
+               against ksw_local_ref over the same envelope in both
+               want_sub modes, with invalid and empty rows; per shape the
+               kernel time, the plain time and the bound. Then
+               ksw_align_batch (K2 forward + reverse pass) on the card
+               against the scalar oracle's ksw_align;
+  3. e2e SE  — streamed single-end alignment (BASELINE config 1) of 100 bp
                reads with 1% substitutions and 0.1% indels against the
                4.6 Mbp bacterial-profile synthetic genome, through
                Aligner(..., device="cuda").align_se_stream: one warm-up
-               batch, then 4 timed batches of 4096 reads whose SAM must be
-               byte-equal to the scalar oracle's; K1's launch count is
-               reset just before the timed batches and read just after;
-  4. stages  — one batch stage by stage (host clock around work that ends
-               in a synchronize), with K1's launches per stage, and the
-               device busy share of another batch from a profiler trace;
-  5. kernels — K1 timed on the inputs of the first main-path call
-               recorded during phase 3, beside its plain version and its
-               bound, printed as one {"kernels": [...]} line.
+               batch, then 2 timed batches of 4096 reads whose SAM must be
+               byte-equal to the scalar oracle's; the kernels' launch
+               counts are reset just before the timed batches and read
+               just after;
+  4. stages  — one SE batch stage by stage (host clock around work that
+               ends in a synchronize), with K1's launches per stage, and
+               the device busy share of another batch from a profiler
+               trace;
+  5. e2e PE  — streamed paired-end alignment (BASELINE config 2) of 150 bp
+               pairs, inserts 400 +- 50, same error rates, genome and
+               index, through align_pe_stream: one warm-up batch, then 2
+               timed batches of 2048 pairs whose SAM must be byte-equal
+               to the oracle's align_pe, with no rescue window missing
+               from the injected results and K2 launched at least twice
+               per batch; then one PE batch stage by stage and the device
+               busy share of another;
+  6. kernels — K1 and K2 held against their plain versions (tolerance 0)
+               and timed on the inputs of their first main-path calls,
+               recorded during phases 3 and 5: K1's first call of the SE
+               path and of the PE path, K2's first forward and first
+               reverse call; each beside its plain version and its bound,
+               printed as one {"kernels": [...]} line with one entry per
+               kernel and path (K1) or template instance (K2), each with
+               that path's own launch count.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -38,12 +58,21 @@ REPO = Path(__file__).resolve().parent
 GENOME_LEN = 4_600_000
 READ_LEN = 100
 BATCH = 4096
-TIMED_BATCHES = 4
+TIMED_BATCHES = 2
+PE_READ_LEN = 150
+PE_PAIRS = 2048         # pairs per PE batch (4096 reads)
+PE_TIMED_BATCHES = 2
 # int32 peak of one H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 # (Hopper architecture white paper); HBM3 at 3.35 TB/s (data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_CELL = 15       # int32 operations per banded DP cell (see PERF.md)
+# int32 operations per cell of K2's recurrence: score (compare, N test,
+# two selects) 4; G = max(max(Hdiag + S, 0), E) 3; A = G - oe_ins + e_ins*j
+# 2; running max 1; F = max(carry - e_ins*(j-1), 0) 2; H = max(G, F) 1;
+# E' = max(E - e_del, H - oe_del, 0) 4; row max with its column 3
+K2_OPS_PER_CELL = 20
+SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, a=1, b=4)
 
 
 def card_line() -> str:
@@ -54,9 +83,9 @@ def card_line() -> str:
 
 
 def build():
-    """Build K1 and the oracle from this checkout, concurrently."""
+    """Build K1, K2 and the oracle from this checkout, concurrently."""
     from tpubwa_torch import oracle
-    from tpubwa_torch.ops import sw
+    from tpubwa_torch.ops import sw, sw_local
     errs = []
 
     def run(fn):
@@ -66,14 +95,18 @@ def build():
             errs.append(e)
     t0 = time.time()
     threads = [threading.Thread(target=run, args=(f,))
-               for f in (sw.build_lib, oracle.get_lib)]
+               for f in (sw.build_lib, sw_local.build_lib, oracle.get_lib)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errs:
         raise errs[0]
-    print(f"build: K1 + oracle in {time.time() - t0:.1f} s", flush=True)
+    print(f"build: K1 + K2 + oracle in {time.time() - t0:.1f} s", flush=True)
+    for k in (sw._KERNEL, sw_local._KERNEL):
+        for line in k.ptxas_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {k.src.name}: {line.strip()}", flush=True)
 
 
 def gen_tasks(seed, n, maxq, maxt):
@@ -174,6 +207,90 @@ def parity(card: str):
     return worst
 
 
+def k2_measure(args, want_sub: bool, kernel_reps=20, plain_reps=2):
+    """Run K2 and ksw_local_ref on the same card tensors; returns a dict
+    with the max abs difference, both times and the bound. The DP cells
+    are what these inputs need: qlen x tlen summed over the valid tasks."""
+    import torch
+    from tpubwa_torch.ops.sw_local import ksw_local, ksw_local_ref
+    q, ql, t, tl, minsc, valid = args
+    kw = dict(SCORING, want_sub=want_sub)
+    got = ksw_local(*args, **kw)
+    want = ksw_local_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    ms = time_ms(lambda: ksw_local(*args, **kw), kernel_reps)
+    plain_ms = time_ms(lambda: ksw_local_ref(*args, **kw), plain_reps)
+    cells = int((ql.clamp(0, q.shape[1]).to(torch.int64)
+                 * tl.clamp(0, t.shape[1]).to(torch.int64)
+                 * (valid != 0)).sum())
+    nbytes = sum(x.numel() * x.element_size() for x in args) + \
+        got.numel() * got.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = cells * K2_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                cells=cells, bytes=nbytes)
+
+
+def local_tasks(n, Q, T, dev):
+    """K2 tasks on the card: the gen_tasks mix plus invalid rows (every
+    11th), a row with qlen 0 and a row with tlen 0."""
+    import torch
+    qs, qlen, ts, tlen, _, valid = gen_tasks(Q * 5 + T + n, n, Q, T)
+    qlen[1], tlen[2] = 0, 0
+    c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa: E731
+    return (c(qs), c(qlen), c(ts), c(tlen), c([19] * n), c(valid))
+
+
+def parity_k2(card: str):
+    """K2 bit-equal to ksw_local_ref on the card over the sweep shapes, in
+    both want_sub modes; then ksw_align_batch against the scalar oracle."""
+    import numpy as np
+    import torch
+    from tpubwa_torch import oracle
+    from tpubwa_torch.opts import MemOptions
+    from tpubwa_torch.pair.rescue import ksw_align_batch
+    dev = torch.device("cuda")
+    shapes = [(100, Q, T) for Q in (100, 151, 256)
+              for T in (256, 512, 768, 1024)]
+    shapes += [(4500, 100, 290), (2100, 151, 640)]
+    worst = 0
+    for n, Q, T in shapes:
+        args = local_tasks(n, Q, T, dev)
+        for want_sub in (True, False):
+            r = k2_measure(args, want_sub, kernel_reps=5, plain_reps=1)
+            worst = max(worst, r["max_abs_err"])
+            print(f"parity K2 N={n:5d} Q={Q:3d} T={T:4d} "
+                  f"want_sub={int(want_sub)}: max_abs_err={r['max_abs_err']}"
+                  f" (tolerance 0) kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms"
+                  f" ({r['bound_by']}) [{card}]", flush=True)
+            if r["max_abs_err"] != 0:
+                raise AssertionError(f"K2 differs from ksw_local_ref at "
+                                     f"N={n} Q={Q} T={T} want_sub={want_sub}")
+    # the composed function (forward pass, reversed prefixes, reverse pass)
+    # against the scalar ksw_align, an independent implementation
+    q, ql, t, tl, minsc, _ = local_tasks(100, 151, 512, dev)
+    got = ksw_align_batch(q, ql, t, tl, minsc, torch.ones_like(ql),
+                          **SCORING).cpu().numpy()
+    qh, qlh, th, tlh = (x.cpu().numpy() for x in (q, ql, t, tl))
+    keys = ("score", "tb", "te", "qb", "qe", "score2", "te2")
+    want = np.array([[oracle.ksw_align_local(
+        qh[i, :qlh[i]], th[i, :tlh[i]], MemOptions(), 19)[k] for k in keys]
+        for i in range(len(qlh))])
+    bad = int((got != want).any(axis=1).sum())
+    print(f"parity ksw_align_batch N=100 Q=151 T=512 on the card against "
+          f"the scalar oracle: {bad} rows differ (tolerance 0) [{card}]",
+          flush=True)
+    if bad:
+        raise AssertionError("ksw_align_batch differs from the scalar "
+                             "ksw_align")
+    return worst
+
+
 def get_index():
     from tpubwa_torch.index.builder import FMIndex, build_index
     from tpubwa_torch.utils import dna, genome
@@ -190,7 +307,7 @@ def get_index():
 
 def e2e(card: str):
     """Streamed SE alignment on the card, SAM byte-equal to the oracle.
-    Returns (first recorded K1 call's args, launches, reads/s)."""
+    Returns (aligner, first recorded K1 call's args, launches, reads/s)."""
     import numpy as np
     import torch
     from tpubwa_torch.extend import worker
@@ -256,7 +373,36 @@ def e2e(card: str):
         raise AssertionError("the main path launched K1 no time")
     stages(aln, batches[1], BATCH, card)
     device_share(aln, batches[2], 2 * BATCH, card)
-    return recorded[0], launches, rps
+    return aln, recorded[0], launches, rps
+
+
+def stepper(out: list):
+    """A step(name, fn) that runs fn between two synchronizes and appends
+    (name, seconds, K1 launches, K2 launches) to out."""
+    import torch
+    from tpubwa_torch.ops import sw, sw_local
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        l1, l2 = sw.ksw_extend.launches, sw_local.ksw_local.launches
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out.append((name, time.perf_counter() - t0,
+                    sw.ksw_extend.launches - l1,
+                    sw_local.ksw_local.launches - l2))
+        return r
+    return step
+
+
+def print_steps(label: str, out: list, n_reads: int, card: str):
+    total = sum(t for _, t, _, _ in out)
+    for name, t, k1, k2 in out:
+        print(f"{label} {name:15s} {t * 1e3:9.1f} ms "
+              f"({100 * t / total:5.1f}%) K1 launches {k1} K2 launches {k2} "
+              f"[{card}]", flush=True)
+    print(f"{label} total           {total * 1e3:9.1f} ms for {n_reads} "
+          f"reads [{card}]", flush=True)
 
 
 def stages(aln, batch, id0: int, card: str):
@@ -265,19 +411,10 @@ def stages(aln, batch, id0: int, card: str):
     from tpubwa_torch.chain.device import (chain_filter, chain_seeds,
                                            seeds_from_smems)
     from tpubwa_torch.extend.worker import extend_chains
-    from tpubwa_torch.ops import sw
     from tpubwa_torch.pipeline import _pack
     from tpubwa_torch.seed.lut import collect_smems_lut
     out = []
-
-    def step(name, fn):
-        torch.cuda.synchronize()
-        l0, t0 = sw.ksw_extend.launches, time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        out.append((name, time.perf_counter() - t0,
-                    sw.ksw_extend.launches - l0))
-        return r
+    step = stepper(out)
     seqs = torch.as_tensor(batch.seqs).to("cuda").to(torch.int32)
     lens = torch.as_tensor(batch.lens).to("cuda")
     d, cc = aln.didx, aln.ccfg
@@ -296,19 +433,174 @@ def stages(aln, batch, id0: int, card: str):
     sam = step("finish", lambda: aln._finish_threaded(batch, *regs, id0))
     if sam != aln.oracle.align_se(batch, aln.opt, id0=id0):
         raise AssertionError("stage-by-stage SAM differs from the oracle")
-    total = sum(t for _, t, _ in out)
-    for name, t, n in out:
-        print(f"stage {name:13s} {t * 1e3:9.1f} ms ({100 * t / total:5.1f}%)"
-              f" K1 launches {n} [{card}]", flush=True)
-    print(f"stage total         {total * 1e3:9.1f} ms for {batch.n} reads "
-          f"[{card}]", flush=True)
+    print_steps("stage", out, batch.n, card)
 
 
-def device_share(aln, batch, id0: int, card: str):
-    """Device busy share of one align_se batch: the union of the CUDA
-    kernel intervals in a torch.profiler trace over the host wall time,
-    and the kernels that take most device time. A trace that shows no
-    device time prints "not measured"."""
+def pe_e2e(aln, card: str):
+    """Streamed PE alignment on the card, SAM byte-equal to the oracle.
+    Returns (first recorded K1 call's args, first K2 forward call's args,
+    first K2 reverse call's args, K1 launches, K2 launches by want_sub,
+    reads/s)."""
+    import numpy as np
+    import torch
+    from tpubwa_torch.extend import worker
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.ops import sw, sw_local
+    from tpubwa_torch.pair import rescue
+
+    t0 = time.time()
+    idx = aln.idx
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    n_pairs = PE_PAIRS * (PE_TIMED_BATCHES + 1)
+    recs = fastx.simulate_reads(fwd, n_pairs, read_len=PE_READ_LEN,
+                                error_rate=0.01, indel_rate=0.001, seed=11,
+                                paired=True, insert_mean=400, insert_std=50)
+    batches = [fastx.batch_reads(recs[i:i + 2 * PE_PAIRS],
+                                 max_len=PE_READ_LEN)
+               for i in range(0, 2 * n_pairs, 2 * PE_PAIRS)]
+    print(f"e2e PE: reads ready in {time.time() - t0:.1f} s", flush=True)
+    warm = aln.align_pe(batches[0], id0=0)
+    if warm != aln.oracle.align_pe(batches[0], aln.opt, id0=0)[0]:
+        raise AssertionError("PE warm-up batch SAM differs from the oracle")
+
+    # record the first main-path calls' inputs: K1's, and K2's forward and
+    # reverse (the calls themselves go through the real wrappers, whose
+    # counts are read; K2's count is split by template instance)
+    recorded = {}
+    calls = {True: 0, False: 0}      # rescue calls per pass, one per batch
+    k2_by = {True: 0, False: 0}      # the wrapper's launches per pass
+    real = rescue.ksw_local
+    real_k1 = worker.ksw_extend
+
+    def recorder(*args, want_sub, **kw):
+        calls[want_sub] += 1
+        if want_sub not in recorded:
+            recorded[want_sub] = tuple(a.clone() for a in args)
+        before = sw_local.ksw_local.launches
+        r = real(*args, want_sub=want_sub, **kw)
+        k2_by[want_sub] += sw_local.ksw_local.launches - before
+        return r
+
+    def recorder_k1(*args, **kw):
+        if "k1" not in recorded:
+            recorded["k1"] = tuple(a.clone() for a in args)
+        return real_k1(*args, **kw)
+    rescue.ksw_local = recorder
+    worker.ksw_extend = recorder_k1
+    lib = aln.oracle._lib
+    aln.stats = {"reads": 0, "fallback_reads": 0}
+    try:
+        lib.tb_rescue_miss_reset()
+        sw.ksw_extend.launches = 0
+        sw_local.ksw_local.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.time()
+        sams = list(aln.align_pe_stream(batches[1:], id0=PE_PAIRS))
+        torch.cuda.synchronize()
+        dt = time.time() - t1
+        k1, k2 = sw.ksw_extend.launches, sw_local.ksw_local.launches
+        misses = lib.tb_rescue_miss_count()
+    finally:
+        rescue.ksw_local = real
+        worker.ksw_extend = real_k1
+    n = 2 * PE_PAIRS * PE_TIMED_BATCHES
+    rps = n / dt
+    fb = aln.stats["fallback_reads"] / max(aln.stats["reads"], 1)
+    tasks = aln.stats.get("rescue_tasks", 0)
+    for k, (b, sam) in enumerate(zip(batches[1:], sams)):
+        want = aln.oracle.align_pe(b, aln.opt, id0=PE_PAIRS * (k + 1))[0]
+        if sam != want:
+            d, o = sam.split("\n"), want.split("\n")
+            bad = next(i for i, (x, y) in enumerate(zip(d, o)) if x != y)
+            raise AssertionError(f"PE batch {k + 1}: SAM differs from the "
+                                 f"oracle at line {bad}:\n{d[bad]}\n{o[bad]}")
+    print(f"e2e PE: {n} reads ({n // 2} pairs of {PE_READ_LEN} bp) SAM "
+          f"byte-equal to the oracle; {rps:.1f} reads/s over "
+          f"{PE_TIMED_BATCHES} streamed batches of {PE_PAIRS} pairs "
+          f"({dt:.3f} s); fallback share {fb:.5f}; tier1 overflow "
+          f"{aln.stats.get('tier1_ovf', 0)}; rescue tasks per batch "
+          f"{tasks / PE_TIMED_BATCHES:.1f}; K1 launches {k1}; K2 launches "
+          f"{k2} ({k2_by[True]} forward, {k2_by[False]} reverse; "
+          f"{calls[True]} batches with tasks); rescue results missing "
+          f"{misses} [{card}]", flush=True)
+    if misses != 0:
+        raise AssertionError(f"{misses} rescue windows were missing from "
+                             "the injected device results")
+    if tasks <= 0 or calls[True] == 0 or k2_by != calls \
+            or k2 != calls[True] + calls[False] \
+            or calls[True] != calls[False]:
+        raise AssertionError(f"the PE main path launched K2 {k2} times for "
+                             f"{tasks} rescue tasks in {calls[True]} batches "
+                             "with tasks: expected a forward and a reverse "
+                             "launch for each")
+    if k1 <= 0:
+        raise AssertionError("the PE main path launched K1 no time")
+    pe_stages(aln, batches[1], PE_PAIRS, card)
+    device_share(aln, batches[2], 2 * PE_PAIRS, card, paired=True)
+    return recorded["k1"], recorded[True], recorded[False], k1, k2_by, rps
+
+
+def pe_stages(aln, batch, id0: int, card: str):
+    """Time one PE batch stage by stage; each stage ends in a synchronize.
+    The rescue device call is split into window assembly and the aligned
+    batch, and inside that K2's two launches are timed between
+    synchronizes of their own; what is left of it is the reversed-prefix
+    assembly and glue."""
+    import torch
+    from tpubwa_torch.pair import rescue
+    out = []
+    step = stepper(out)
+    dev = aln.device
+    buf = step("worker1 2 ends", lambda: aln.worker1_packed(
+        batch.seqs, batch.lens).cpu().numpy())
+    ctx = step("tiers", lambda: aln._pe_regions(batch, buf, id0))
+    ctx["hist_h"] = step("isize+hist", lambda: aln._pe_hist(ctx))
+    tasks = ctx["tasks"] = step("task gen", lambda: aln._pe_tasks(ctx))
+    if len(tasks) == 0:
+        raise AssertionError("the staged PE batch has no rescue tasks")
+    mate_row, is_rev, rb, wlen, T = rescue.task_arrays(tasks, id0)
+    up = lambda a, dt=torch.int32: torch.as_tensor(a).to(dev).to(dt)  # noqa
+    wl = up(wlen)
+    q, la, t = step("rescue windows", lambda: rescue.rescue_windows(
+        aln.didx, up(batch.seqs, torch.uint8), up(batch.lens), up(mate_row),
+        up(is_rev), up(rb, aln.didx.pos_dtype), wl, T))
+    k2_s = {}
+    real = rescue.ksw_local
+
+    def timed(*args, want_sub, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = real(*args, want_sub=want_sub, **kw)
+        torch.cuda.synchronize()
+        k2_s[want_sub] = time.perf_counter() - t0
+        return r
+    rescue.ksw_local = timed
+    try:
+        n = len(tasks)
+        res = step("rescue align", lambda: rescue.ksw_align_batch(
+            q, la, t, wl,
+            torch.full((n,), 19, dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.int32, device=dev), **SCORING))
+    finally:
+        rescue.ksw_local = real
+    ctx["res_dev"] = res
+    sam = step("finish", lambda: aln._pe_stage_b(ctx))
+    if sam != aln.oracle.align_pe(batch, aln.opt, id0=id0)[0]:
+        raise AssertionError("PE stage-by-stage SAM differs from the oracle")
+    print_steps("PE stage", out, batch.n, card)
+    align_s = next(t for name, t, _, _ in out if name == "rescue align")
+    print(f"PE stage rescue align of {n} tasks (Q={q.shape[1]} T={T}): K2 "
+          f"forward {k2_s[True] * 1e3:.2f} ms, K2 reverse "
+          f"{k2_s[False] * 1e3:.2f} ms, reversed prefixes and glue "
+          f"{(align_s - k2_s[True] - k2_s[False]) * 1e3:.2f} ms [{card}]",
+          flush=True)
+
+
+def device_share(aln, batch, id0: int, card: str, paired: bool = False):
+    """Device busy share of one align_se (or align_pe) batch: the union of
+    the CUDA kernel intervals in a torch.profiler trace over the host wall
+    time, and the kernels that take most device time. A trace that shows
+    no device time prints "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -316,10 +608,12 @@ def device_share(aln, batch, id0: int, card: str):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sam = aln.align_se(batch, id0=id0)
+        sam = (aln.align_pe if paired else aln.align_se)(batch, id0=id0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if sam != aln.oracle.align_se(batch, aln.opt, id0=id0):
+    want = aln.oracle.align_pe(batch, aln.opt, id0=id0)[0] if paired \
+        else aln.oracle.align_se(batch, aln.opt, id0=id0)
+    if sam != want:
         raise AssertionError("profiled batch SAM differs from the oracle")
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
@@ -339,7 +633,8 @@ def device_share(aln, batch, id0: int, card: str):
             by_name[ev.name] = by_name.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us()
     print(f"device busy share {busy / 1e6 / wall:.4f} of {wall * 1e3:.1f} ms"
-          f" (one batch of {batch.n} reads under the profiler, "
+          f" (one {'PE' if paired else 'SE'} batch of {batch.n} reads under "
+          f"the profiler, "
           f"{len(spans)} kernels) [{card}]", flush=True)
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
         print(f"  device {us / 1e3:9.2f} ms  {name[:90]}", flush=True)
@@ -354,7 +649,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not (REPO / "tpubwa_torch" / "csrc" / "ksw_extend.cu").exists():
+    if not (REPO / "tpubwa_torch" / "csrc" / "ksw_local.cu").exists():
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -363,28 +658,62 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     build()
     worst = parity(card)
-    k1_args, launches, rps = e2e(card)
-    r = k1_measure(k1_args)
-    N, Q = k1_args[0].shape
-    T = k1_args[2].shape[1]
-    print(f"K1 main-path call N={N} Q={Q} T={T}: kernel {r['ms']:.4f} ms, "
-          f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-          f"({r['bound_by']}: {r['cells']} band cells, {r['bytes']} bytes) "
-          f"[{card}]", flush=True)
-    if r["max_abs_err"] != 0:
-        raise AssertionError("K1 differs from ksw_extend_ref on the "
-                             "main-path inputs")
-    kernels = [{
-        "name": "ksw_extend", "route": "cuda",
-        "source": "tpubwa_torch/csrc/ksw_extend.cu",
-        "replaces": "tpubwa/ops/sw_pallas.py:86",
-        "launches": launches, "max_abs_err": max(worst, r["max_abs_err"]),
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
-    }]
+    worst2 = parity_k2(card)
+    aln, k1_args, launches, rps = e2e(card)
+    k1_pe_args, k2_fwd, k2_rev, pe_k1, pe_k2, pe_rps = pe_e2e(aln, card)
+    r1 = {}
+    for path, args, n_l in (("SE", k1_args, launches),
+                            ("PE", k1_pe_args, pe_k1)):
+        r1[path] = r = k1_measure(args)
+        print(f"K1 {path} main-path call N={args[0].shape[0]} "
+              f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
+              f"{r['max_abs_err']} (tolerance 0) kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}: {r['cells']} band cells, {r['bytes']} "
+              f"bytes); {n_l} launches on the {path} path [{card}]",
+              flush=True)
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"K1 differs from ksw_extend_ref on the "
+                                 f"{path} main-path inputs")
+    r2 = {}
+    for want_sub, args in ((True, k2_fwd), (False, k2_rev)):
+        r2[want_sub] = m = k2_measure(args, want_sub)
+        print(f"K2 main-path {'forward' if want_sub else 'reverse'} call "
+              f"N={args[0].shape[0]} Q={args[0].shape[1]} "
+              f"T={args[2].shape[1]}: max_abs_err={m['max_abs_err']} "
+              f"(tolerance 0) kernel {m['ms']:.4f} ms, plain "
+              f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms "
+              f"({m['bound_by']}: {m['cells']} cells, {m['bytes']} bytes); "
+              f"{pe_k2[want_sub]} launches on the PE path [{card}]",
+              flush=True)
+        if m["max_abs_err"] != 0:
+            raise AssertionError("K2 differs from ksw_local_ref on the "
+                                 "main-path inputs")
+
+    def entry(name, path, src, line, n_l, sweep_err, m):
+        return {"name": name, "path": path, "route": "cuda",
+                "source": f"tpubwa_torch/csrc/{src}",
+                "replaces": f"tpubwa/ops/sw_pallas.py:{line}",
+                "launches": n_l,
+                "max_abs_err": max(sweep_err, m["max_abs_err"]),
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None}
+    # one entry per kernel and path: K1 on the SE path and on the PE path
+    # (other shapes, its own launch count), K2's two template instances
+    kernels = [
+        entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches, worst,
+              r1["SE"]),
+        entry("ksw_extend_pe", "PE", "ksw_extend.cu", 86, pe_k1, worst,
+              r1["PE"]),
+        entry("ksw_local", "PE, forward pass (want_sub)", "ksw_local.cu",
+              231, pe_k2[True], worst2, r2[True]),
+        entry("ksw_local_rev", "PE, reverse pass", "ksw_local.cu", 231,
+              pe_k2[False], worst2, r2[False]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
-    print(f"e2e reads/s: {rps:.1f}")
+    print(f"e2e reads/s: SE {rps:.1f}, PE {pe_rps:.1f}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,7 +17,9 @@ PKG = REPO / "tpubwa_torch"
 def test_import_pulls_in_no_jax_and_no_tpubwa():
     code = ("import sys\n"
             "import tpubwa_torch, tpubwa_torch.pipeline, "
-            "tpubwa_torch.ops.sw\n"
+            "tpubwa_torch.ops.sw, tpubwa_torch.ops.sw_local, "
+            "tpubwa_torch.ops.cubuild, tpubwa_torch.pair.rescue, "
+            "tpubwa_torch.dist.mesh\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpubwa.')) or m == 'tpubwa')\n"
             "print(bad)\n")

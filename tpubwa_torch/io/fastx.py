@@ -69,10 +69,15 @@ def simulate_reads(
     error_rate: float = 0.0,
     indel_rate: float = 0.0,
     seed: int = 0,
+    paired: bool = False,
+    insert_mean: int = 350,
+    insert_std: int = 35,
 ) -> list[FastxRecord]:
-    """Sample single-end reads from an encoded reference.
+    """Sample reads (optionally pairs, FR orientation) from an encoded
+    reference.
 
-    Read names encode the truth locus: ``sim_<i>_<pos>_<strand>`` so tests can
+    Read names encode the truth locus: ``sim_<i>_<pos>_<strand>`` (pairs:
+    ``sim_<i>_<pos>_<insert>``, both mates under one name) so tests can
     check mapping positions without an external truth file.
     """
     rng = np.random.default_rng(seed)
@@ -81,6 +86,18 @@ def simulate_reads(
         else 0
     out: list[FastxRecord] = []
     for i in range(n):
+        if paired:
+            ins = int(np.clip(rng.normal(insert_mean, insert_std),
+                              2 * read_len, L))
+            pos = int(rng.integers(0, L - ins - slack + 1))
+            frag = ref[pos : pos + ins + slack]
+            r1 = _mutate(frag[: read_len + slack], rng, read_len,
+                         error_rate, indel_rate)
+            r2 = _mutate(dna.revcomp(frag[:ins])[: read_len + slack], rng,
+                         read_len, error_rate, indel_rate)
+            out.append(FastxRecord(f"sim_{i}_{pos}_{ins}", dna.decode(r1)))
+            out.append(FastxRecord(f"sim_{i}_{pos}_{ins}", dna.decode(r2)))
+            continue
         strand = int(rng.integers(0, 2))
         pos = int(rng.integers(0, L - read_len - slack + 1))
         r = ref[pos : pos + read_len + slack]

@@ -1,0 +1,100 @@
+"""Build-and-bind helper shared by the hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C entry point. It is
+compiled with nvcc for sm_90a into ``build/tpubwa_torch/lib<name>.so`` at
+first use (linked to a temporary file and renamed into place, so a process
+that loads the library never sees a half-written file) and loaded with
+ctypes. Nothing here runs at import time: hosts without nvcc import every
+module and only fail when a kernel is actually asked for.
+"""
+from __future__ import annotations
+
+import ctypes as C
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+_REPO = Path(__file__).resolve().parents[2]
+CSRC = _REPO / "tpubwa_torch" / "csrc"
+BUILD = _REPO / "build" / "tpubwa_torch"
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+class KernelLib:
+    """One kernel source and its lazily built, lazily loaded library."""
+
+    def __init__(self, name: str):
+        self.src = CSRC / f"{name}.cu"
+        self.so = BUILD / f"lib{name}.so"
+        self.ptxas_log = ""      # what -Xptxas -v said at the last build
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def build(self) -> Path:
+        """Compile the source for sm_90a (a temporary file renamed into
+        place). Returns the library path."""
+        self.so.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.so.parent)
+        os.close(fd)
+        try:
+            cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-o", tmp, str(self.src)]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {self.src.name}:\n{r.stderr}")
+            self.ptxas_log = r.stderr
+            os.replace(tmp, self.so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return self.so
+
+    def load(self, declare) -> C.CDLL:
+        """The loaded library, built first when missing or older than its
+        source; ``declare(lib)`` sets the entry points' ctypes signatures."""
+        with self._lock:
+            if self._lib is None:
+                if not self.so.exists() or \
+                        self.so.stat().st_mtime < self.src.stat().st_mtime:
+                    self.build()
+                lib = C.CDLL(str(self.so))
+                declare(lib)
+                self._lib = lib
+            return self._lib
+
+
+def check_task_args(fn: str, names, args) -> int:
+    """Argument checks shared by the kernel wrappers: the first tensor is
+    the (N, Q) query on a CUDA device; every tensor must be contiguous
+    int32 on that device, 2-D tensors with N rows and 1-D tensors of shape
+    (N,). Returns N; raises ValueError on what the kernels do not take."""
+    query = args[0]
+    if query.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {query.device}")
+    if query.dim() != 2:
+        raise ValueError(f"{fn}: {names[0]} must be 2-D")
+    N = query.shape[0]
+    for name, x in zip(names, args):
+        if x.device != query.device or x.dtype != torch.int32 or \
+                not x.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous int32 "
+                             f"tensor on {query.device}")
+        if x.dim() not in (1, 2) or x.shape[0] != N:
+            raise ValueError(f"{fn}: {name} must have {N} rows")
+    return N

@@ -18,23 +18,16 @@ bwa 5x5 matrix (match a, mismatch -b, N scores -1).
 from __future__ import annotations
 
 import ctypes as C
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
-from pathlib import Path
 
 import torch
+
+from .cubuild import KernelLib, check_task_args
 
 NEG = -(2**30)
 _I32 = torch.int32
 
-_REPO = Path(__file__).resolve().parents[2]
-_SRC = _REPO / "tpubwa_torch" / "csrc" / "ksw_extend.cu"
-_SO = _REPO / "build" / "tpubwa_torch" / "libksw_extend.so"
-_lib = None
-_lib_lock = threading.Lock()
+_KERNEL = KernelLib("ksw_extend")
 _count_lock = threading.Lock()
 
 
@@ -178,50 +171,16 @@ def ksw_extend_ref(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
                       max_off], dim=1).to(_I32)
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernel of "
-                           "ksw_extend cannot be built")
-    return found
+def _declare(lib: C.CDLL) -> None:
+    lib.ksw_extend_launch.restype = C.c_int
+    lib.ksw_extend_launch.argtypes = \
+        [C.c_void_p] * 9 + [C.c_int] * 10 + [C.c_void_p]
 
 
-def build_lib() -> Path:
-    """Compile csrc/ksw_extend.cu for sm_90a into build/tpubwa_torch/ (a
-    temporary file renamed into place). Returns the library path."""
-    _SO.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_SO.parent)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(_SRC)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SRC.name}:\n{r.stderr}")
-        os.replace(tmp, _SO)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _SO
-
-
-def _get_lib() -> C.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            if not _SO.exists() or \
-                    _SO.stat().st_mtime < _SRC.stat().st_mtime:
-                build_lib()
-            lib = C.CDLL(str(_SO))
-            lib.ksw_extend_launch.restype = C.c_int
-            lib.ksw_extend_launch.argtypes = \
-                [C.c_void_p] * 9 + [C.c_int] * 10 + [C.c_void_p]
-            _lib = lib
-        return _lib
+def build_lib():
+    """Compile csrc/ksw_extend.cu for sm_90a into build/tpubwa_torch/.
+    Returns the library path."""
+    return _KERNEL.build()
 
 
 def ksw_extend(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
@@ -237,26 +196,15 @@ def ksw_extend(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
     if query.device.type == "cpu":
         return ksw_extend_ref(*args, o_del=o_del, e_del=e_del, o_ins=o_ins,
                               e_ins=e_ins, zdrop=zdrop, a=a, b=b)
-    if query.device.type != "cuda":
-        raise ValueError(f"ksw_extend: unsupported device {query.device}")
-    if query.dim() != 2 or target.dim() != 2:
+    if target.dim() != 2:
         raise ValueError("ksw_extend: query and target must be 2-D")
-    N, Q = query.shape
-    T = target.shape[1]
-    if target.shape[0] != N:
-        raise ValueError("ksw_extend: query/target rows differ")
-    for name, x in zip(("query", "qlen", "target", "tlen", "h0", "w",
-                        "end_bonus", "valid"), args):
-        if x.device != query.device or x.dtype != _I32 or \
-                not x.is_contiguous():
-            raise ValueError(f"ksw_extend: {name} must be a contiguous "
-                             f"int32 tensor on {query.device}")
-        if x.dim() == 1 and x.shape[0] != N:
-            raise ValueError(f"ksw_extend: {name} must have shape ({N},)")
+    N = check_task_args("ksw_extend", ("query", "qlen", "target", "tlen",
+                                       "h0", "w", "end_bonus", "valid"), args)
+    Q, T = query.shape[1], target.shape[1]
     out = torch.empty((N, 6), dtype=_I32, device=query.device)
     if N == 0:
         return out
-    lib = _get_lib()
+    lib = _KERNEL.load(_declare)
     ptrs = [x.data_ptr() for x in args] + [out.data_ptr()]
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream

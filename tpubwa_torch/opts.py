@@ -73,3 +73,14 @@ class MemOptions:
                 m[i, j] = self.a if i == j else -self.b
         # row/col 4 (N) stay -1
         return m
+
+    # Common flag bits, mirroring MEM_F_* [bwa: bwamem.h]
+    F_PE = 0x2
+    F_NOPAIRING = 0x4
+    F_ALL = 0x8
+    F_NO_MULTI = 0x10
+    F_NO_RESCUE = 0x20
+    F_SOFTCLIP = 0x200
+
+    def replace(self, **kw) -> "MemOptions":
+        return dataclasses.replace(self, **kw)

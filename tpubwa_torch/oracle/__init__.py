@@ -89,6 +89,8 @@ def to_copt(o: MemOptions) -> CMemOpt:
 
 def _declare(lib: C.CDLL) -> None:
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
@@ -112,9 +114,61 @@ def _declare(lib: C.CDLL) -> None:
     ]
     lib.tb_sais.restype = C.c_int
     lib.tb_sais.argtypes = [u8p, C.c_int64, i64p]
+    # ---- paired-end entry points
+    lib.tb_ksw_align.argtypes = [
+        C.c_int, u8p, C.c_int, u8p, C.c_int, C.c_int, C.c_int, C.c_int,
+        C.c_int, i8p, i32p,
+    ]
+    lib.tb_regs_pre.restype = C.c_int
+    lib.tb_regs_pre.argtypes = [C.c_void_p, C.POINTER(CMemOpt), u8p, C.c_int,
+                                C.POINTER(C.POINTER(C.c_int64)), i32p]
+    lib.tb_align_pe_sam.restype = C.c_void_p
+    lib.tb_align_pe_sam.argtypes = [
+        C.c_void_p, C.POINTER(CMemOpt), u8p, i32p,
+        C.POINTER(C.c_char_p), C.POINTER(C.c_char_p), C.c_int, C.c_int,
+        C.c_int64, C.c_char_p, f64p, C.POINTER(C.c_int64),
+    ]
+    lib.tb_finish_pe_sam.restype = C.c_void_p
+    lib.tb_finish_pe_sam.argtypes = [
+        C.c_void_p, C.POINTER(CMemOpt), u8p, i32p,
+        C.POINTER(C.c_char_p), C.POINTER(C.c_char_p), C.c_int, C.c_int,
+        i64p, i32p, i32p, C.c_void_p, C.c_int, C.c_void_p, C.c_void_p,
+        C.c_int, C.c_int64, C.c_char_p, C.POINTER(C.c_int64),
+    ]
+    lib.tb_pe_isize.restype = C.c_int
+    lib.tb_pe_isize.argtypes = [
+        C.c_void_p, C.POINTER(CMemOpt), u8p, i32p, C.c_int, C.c_int,
+        i64p, i32p, i32p, i32p, i64p,
+    ]
+    lib.tb_pe_rescue_tasks.restype = C.c_int
+    lib.tb_pe_rescue_tasks.argtypes = [
+        C.c_void_p, C.POINTER(CMemOpt), u8p, i32p, C.c_int, C.c_int,
+        i64p, i32p, i32p, C.c_void_p, C.c_int, C.c_int64,
+        C.POINTER(C.POINTER(C.c_int64)),
+    ]
+    # rescue results the native replay asked for and did not find injected
+    lib.tb_rescue_miss_count.restype = C.c_int
+    lib.tb_rescue_miss_count.argtypes = []
+    lib.tb_rescue_miss_reset.restype = None
+    lib.tb_rescue_miss_reset.argtypes = []
 
 
-def _sam_args(batch):
+def ksw_align_local(query, target, opt: MemOptions, minsc=0):
+    """Scalar local SW. Returns dict(score, tb, te, qb, qe, score2, te2)."""
+    lib = get_lib()
+    query = np.ascontiguousarray(query, dtype=np.uint8)
+    target = np.ascontiguousarray(target, dtype=np.uint8)
+    out = np.zeros(7, dtype=np.int32)
+    mat = np.ascontiguousarray(opt.scmat.reshape(-1))
+    lib.tb_ksw_align(len(query), query, len(target), target, opt.o_del,
+                     opt.e_del, opt.o_ins, opt.e_ins, minsc, mat, out)
+    keys = ("score", "tb", "te", "qb", "qe", "score2", "te2")
+    return dict(zip(keys, (int(x) for x in out)))
+
+
+def sam_args(batch):
+    """A batch as the native SAM entry points take it: contiguous uint8
+    seqs, int32 lens, and C string arrays of names and qualities."""
     seqs = np.ascontiguousarray(batch.seqs, dtype=np.uint8)
     lens = np.ascontiguousarray(batch.lens, dtype=np.int32)
     names = (C.c_char_p * batch.n)(*[n.encode() for n in batch.names])
@@ -155,9 +209,34 @@ class Oracle:
             self._lib.tb_idx_free(self._h)
             self._h = None
 
+    def regs_pre(self, seq, opt: MemOptions):
+        """Pre-dedup regions in the device/finish 10-field layout + l_rep."""
+        seq = np.ascontiguousarray(seq, dtype=np.uint8)
+        rows = C.POINTER(C.c_int64)()
+        l_rep = np.zeros(1, dtype=np.int32)
+        n = self._lib.tb_regs_pre(self._h, C.byref(to_copt(opt)), seq,
+                                  len(seq), C.byref(rows), l_rep)
+        arr = (np.ctypeslib.as_array(rows, shape=(n, 10)).copy() if n
+               else np.empty((0, 10), dtype=np.int64))
+        return arr, int(l_rep[0])
+
+    def align_pe(self, batch, opt: MemOptions, id0=0, rg_id=""):
+        """Paired-end SAM for an interleaved ReadBatch (pair i = rows
+        2i, 2i+1). Returns (sam_text, pes) where pes is a (4, 5) array of
+        (low, high, failed, avg, std) per orientation FF/FR/RF/RR."""
+        opt = opt.replace(flag=opt.flag | MemOptions.F_PE)
+        seqs, lens, names, quals = sam_args(batch)
+        pes = np.zeros((4, 5), dtype=np.float64)
+        out_len = C.c_int64(0)
+        ptr = self._lib.tb_align_pe_sam(
+            self._h, C.byref(to_copt(opt)), seqs, lens, names, quals,
+            batch.n, seqs.shape[1], id0, rg_id.encode(), pes.reshape(-1),
+            C.byref(out_len))
+        return C.string_at(ptr, out_len.value).decode(), pes
+
     def align_se(self, batch, opt: MemOptions, id0=0, rg_id="") -> str:
         """Full single-end SAM body text for a ReadBatch."""
-        seqs, lens, names, quals = _sam_args(batch)
+        seqs, lens, names, quals = sam_args(batch)
         out_len = C.c_int64(0)
         ptr = self._lib.tb_align_se_sam(
             self._h, C.byref(to_copt(opt)), seqs, lens, names, quals,
@@ -170,7 +249,7 @@ class Oracle:
         """SAM text for reads whose pre-dedup regions came from the device:
         flat (total, 10) int64 rows in REG_FIELDS order, counts (n,) regions
         per read, l_rep (n,) repetitive query length per read."""
-        seqs, lens, names, quals = _sam_args(batch)
+        seqs, lens, names, quals = sam_args(batch)
         out_len = C.c_int64(0)
         ptr = self._lib.tb_finish_se_sam(
             self._h, C.byref(to_copt(opt)), seqs, lens, names, quals,

@@ -1,4 +1,5 @@
-"""End-to-end single-end alignment pipeline: device worker1 + native finish.
+"""End-to-end alignment pipeline (single-end and paired-end): device
+worker1 + native finish.
 
 The production data path (ARCHITECTURE.md):
   FASTQ batch -> device: SMEM seeding, chaining, chain filter, batched banded
@@ -12,6 +13,11 @@ trade only throughput, never correctness.
 Maps to the reference's FastMap.memSingleEndMapping -> worker1 -> worker2 flow
 [ref: FastMap.scala; worker1/BWAMemWorker1.scala; worker2/BWAMemWorker2.scala].
 
+Paired-end batches add, between worker1 and the native finish, the
+insert-size histogram and all mate-rescue local alignments of the batch as
+one device call (pair/rescue.py)
+[ref: FastMap.memPairEndMapping; worker2/MemSamPe.scala].
+
 Device: ``Aligner(idx, device=None)`` runs on the CUDA card and raises when
 there is none; tests pass ``device="cpu"``, which runs every stage with
 the plain PyTorch versions of the kernels.
@@ -19,6 +25,7 @@ the plain PyTorch versions of the kernels.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import ctypes as C
 import dataclasses
 import math
 import os
@@ -28,12 +35,14 @@ import torch
 
 from .chain.device import ChainConfig, chain_filter, chain_seeds, \
     seeds_from_smems
+from .dist.mesh import pe_hist_psum
 from .extend.worker import ExtendConfig, extend_chains
 from .index.builder import FMIndex
 from .index.device import DeviceIndex
 from .io.fastx import ReadBatch
 from .opts import MemOptions
-from .oracle import Oracle
+from .oracle import Oracle, sam_args, to_copt
+from .pair.rescue import dispatch_rescue_tasks
 from .seed.lut import KmerLUT, LutSeedConfig, collect_smems_lut
 
 REG_FIELDS = ("rb", "re", "qb", "qe", "score", "truesc", "w", "seedcov",
@@ -494,6 +503,155 @@ class Aligner:
                 id0=id0 + i, rg_id=self.rg_id))
             i = j
         return "".join(out_parts)
+
+    def align_pe(self, batch: ReadBatch, id0: int = 0) -> str:
+        """Paired-end SAM for an interleaved batch (pair i = rows 2i, 2i+1).
+
+        The PE flow [ref: FastMap.memPairEndMapping; bwa: mem_sam_pe]:
+          1. device worker1 per end (overflowed reads get host-computed
+             regions, identical semantics);
+          2. per-pair insert samples (native) -> orientation histogram on
+             the device -> pestat from the histogram;
+          3. all mate-rescue SW windows of the batch in ONE device
+             local-alignment call (pair/rescue.py);
+          4. native pairing/flags/TLEN/SAM replay with the device results
+             injected.
+        """
+        buf = self.worker1_packed(batch.seqs, batch.lens).cpu().numpy()
+        return self._finish_pe_buf(batch, buf, id0)
+
+    def align_pe_stream(self, batches, id0: int = 0):
+        """Pipelined PE alignment. Dispatch ORDER is the whole game: the
+        device queue is FIFO, so batch i's small PE calls (histogram,
+        rescue kernel) must be enqueued BEFORE batch i+1's worker1 — else
+        each waits out a whole worker1 of queue latency. Per batch:
+        download worker1 -> stage A (host isize, histogram, native task
+        gen, rescue DISPATCH) -> enqueue next worker1 -> stage B (rescue
+        download + native pair/SAM, overlapped with the next batch's
+        device time). Yields SAM text per batch; items may be (ReadBatch,
+        explicit_id0) pairs, id0 counting pairs."""
+        prev: tuple[ReadBatch, torch.Tensor, int] | None = None
+        n = id0
+        for item in batches:
+            b, i0x = item if isinstance(item, tuple) else (item, None)
+            if i0x is not None:
+                n = i0x
+            if prev is not None:
+                bb, dev, i0 = prev
+                ctx = self._pe_stage_a(bb, dev.cpu().numpy(), i0)
+                devb = self.worker1_packed(b.seqs, b.lens)
+                yield self._pe_stage_b(ctx)
+            else:
+                devb = self.worker1_packed(b.seqs, b.lens)
+            prev = (b, devb, n)
+            n += b.n // 2
+        if prev is not None:
+            bb, dev, i0 = prev
+            yield self._finish_pe_buf(bb, dev.cpu().numpy(), i0)
+
+    def _finish_pe_buf(self, batch: ReadBatch, buf: np.ndarray,
+                       id0: int) -> str:
+        return self._pe_stage_b(self._pe_stage_a(batch, buf, id0))
+
+    def _pe_regions(self, batch: ReadBatch, buf: np.ndarray, id0: int):
+        """Unpack worker1's buffer and settle every read's pre-dedup
+        regions: the big-caps tiers for tier-1 overflows, then the scalar
+        oracle's regions for reads that overflow every tier. Returns the
+        context the later PE steps share: the batch and its regions as
+        contiguous host arrays, and the PE options."""
+        n, ovf, l_rep, flat = self._tiers(
+            batch, *self._unpack_host(buf, batch.n))
+        if ovf.any():
+            offs = np.concatenate([[0], np.cumsum(n)])
+            parts: list[np.ndarray] = []
+            for b in range(batch.n):
+                if ovf[b]:
+                    rows, lr = self.oracle.regs_pre(
+                        batch.seqs[b][: batch.lens[b]], self.opt)
+                    parts.append(rows)
+                    n[b] = len(rows)
+                    l_rep[b] = lr
+                else:
+                    parts.append(flat[offs[b]:offs[b + 1]])
+            flat = np.concatenate(parts, axis=0)
+        seqs_h, lens_h, names, quals = sam_args(batch)
+        return dict(
+            batch=batch, id0=id0,
+            copt=to_copt(self.opt.replace(
+                flag=self.opt.flag | MemOptions.F_PE)),
+            seqs_h=seqs_h, lens_h=lens_h, names=names, quals=quals,
+            flat_h=np.ascontiguousarray(flat, np.int64),
+            n_h=np.ascontiguousarray(n, np.int32),
+            lrep_h=np.ascontiguousarray(l_rep, np.int32))
+
+    def _pe_stage_a(self, batch: ReadBatch, buf: np.ndarray, id0: int):
+        """PE finish, part A: unpack + big-caps tiers + native isize
+        sampling + pestat histogram + native rescue-task generation +
+        rescue kernel DISPATCH. Returns the context for _pe_stage_b with
+        the rescue device call in flight (nothing downloads it here), so
+        the stream can enqueue the next batch's worker1 behind it."""
+        ctx = self._pe_regions(batch, buf, id0)
+        ctx["hist_h"] = self._pe_hist(ctx)
+        ctx["tasks"] = self._pe_tasks(ctx)
+        # one batched device local-alignment call, dispatched async
+        ctx["res_dev"] = dispatch_rescue_tasks(
+            self.didx, batch.seqs, batch.lens, ctx["tasks"], id0, self.opt)
+        return ctx
+
+    def _pe_hist(self, ctx: dict) -> np.ndarray:
+        """pestat input: native per-pair (orientation, insert) samples ->
+        device histogram (4, max_ins+1) int64. The cross-host reduction of
+        the histogram belongs to the multi-host slice."""
+        batch = ctx["batch"]
+        n_pairs = batch.n // 2
+        dirs = np.zeros(max(n_pairs, 1), np.int32)
+        isz = np.zeros(max(n_pairs, 1), np.int64)
+        self.oracle._lib.tb_pe_isize(
+            self.oracle._h, C.byref(ctx["copt"]), ctx["seqs_h"],
+            ctx["lens_h"], batch.n, ctx["seqs_h"].shape[1], ctx["flat_h"],
+            ctx["n_h"], ctx["lrep_h"], dirs, isz)
+        return np.ascontiguousarray(pe_hist_psum(
+            dirs[:n_pairs], isz[:n_pairs], self.opt.max_ins, self.device))
+
+    def _pe_tasks(self, ctx: dict) -> np.ndarray:
+        """Native rescue-task generation: (n_t, 8) int64 rows (pair, end,
+        j, dir, is_rev, rb, re, rid), every window the pairing replay
+        could ask for."""
+        batch = ctx["batch"]
+        rowsp = C.POINTER(C.c_int64)()
+        n_t = self.oracle._lib.tb_pe_rescue_tasks(
+            self.oracle._h, C.byref(ctx["copt"]), ctx["seqs_h"],
+            ctx["lens_h"], batch.n, ctx["seqs_h"].shape[1], ctx["flat_h"],
+            ctx["n_h"], ctx["lrep_h"],
+            ctx["hist_h"].ctypes.data_as(C.c_void_p), self.opt.max_ins,
+            ctx["id0"], C.byref(rowsp))
+        self.stats["rescue_tasks"] = self.stats.get("rescue_tasks", 0) + n_t
+        if not n_t:
+            return np.empty((0, 8), np.int64)
+        return np.ctypeslib.as_array(rowsp, shape=(n_t * 8,)) \
+            .reshape(n_t, 8).copy()
+
+    def _pe_stage_b(self, ctx: dict) -> str:
+        """PE finish, part B: download the rescue results (blocks on the
+        device) and run the native pairing/flags/TLEN/SAM replay."""
+        batch = ctx["batch"]
+        tasks = ctx["tasks"]
+        n_t = len(tasks)
+        tasks_p = res_p = None
+        if n_t:
+            res_h = np.ascontiguousarray(
+                ctx["res_dev"].cpu().numpy(), np.int32)
+            tasks_p = tasks.ctypes.data_as(C.c_void_p)
+            res_p = res_h.ctypes.data_as(C.c_void_p)
+        out_len = C.c_int64(0)
+        ptr = self.oracle._lib.tb_finish_pe_sam(
+            self.oracle._h, C.byref(ctx["copt"]), ctx["seqs_h"],
+            ctx["lens_h"], ctx["names"], ctx["quals"], batch.n, ctx["seqs_h"].shape[1],
+            ctx["flat_h"], ctx["n_h"], ctx["lrep_h"],
+            ctx["hist_h"].ctypes.data_as(C.c_void_p), self.opt.max_ins,
+            tasks_p, res_p, n_t, ctx["id0"], self.rg_id.encode(),
+            C.byref(out_len))
+        return C.string_at(ptr, out_len.value).decode()
 
     def sam_header(self, extra_pg: str = "tpubwa") -> str:
         lines = [f"@SQ\tSN:{a.name}\tLN:{a.length}" for a in self.idx.anns]
