@@ -6,15 +6,22 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                ksw_extend.cu), the local-alignment kernel K2 (csrc/
                ksw_local.cu), both nvcc for sm_90a, and the native oracle
                (native/*.cpp, g++), all from this checkout, in parallel;
+               prints what ptxas says of every template instance
+               (registers, spills);
   2. parity  — each kernel against its plain PyTorch version on the card,
                bit-equal (tolerance 0: integer scores and coordinates):
                K1 against ksw_extend_ref over the Q x T envelope, the
-               production N shapes and the narrow band + z-drop case; K2
-               against ksw_local_ref over the same envelope in both
+               production N shapes, the narrow band + z-drop case and the
+               edge sweep (Q at every register-instance boundary and in
+               the generic instance, N = 1 and 128, qlen = Q and qlen = 1,
+               h0 at the packed key's limit, bands that go empty); K2
+               against ksw_local_ref over the same shapes in both
                want_sub modes, with invalid and empty rows; per shape the
                kernel time, the plain time and the bound. Then
                ksw_align_batch (K2 forward + reverse pass) on the card
-               against the scalar oracle's ksw_align;
+               against the scalar oracle's ksw_align, and the latency of
+               one DP row of each kernel's register and generic instance
+               (one task, two target lengths, the slope);
   3. e2e SE  — streamed single-end alignment (BASELINE config 1) of 100 bp
                reads with 1% substitutions and 0.1% indels against the
                4.6 Mbp bacterial-profile synthetic genome, through
@@ -42,12 +49,18 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                reverse call; each beside its plain version and its bound,
                printed as one {"kernels": [...]} line with one entry per
                kernel and path (K1) or template instance (K2), each with
-               that path's own launch count.
+               that path's own launch count; beside each the generic
+               (shared-memory) instance's time on the same inputs.
+Phases 3 and 5 also print K1's launches of the timed batches by shape
+(N, Q, T) with their summed time on the card (CUDA events around each).
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
+(python3 chip_smoke.py kernels stops after phase 2: build, sweeps and row
+latency only, for work on the kernels.)
 """
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -104,19 +117,44 @@ def build():
         raise errs[0]
     print(f"build: K1 + K2 + oracle in {time.time() - t0:.1f} s", flush=True)
     for k in (sw._KERNEL, sw_local._KERNEL):
-        for line in k.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {k.src.name}: {line.strip()}", flush=True)
+        for line in ptxas_summary(k.ptxas_log):
+            print(f"build: {k.src.name}: {line}", flush=True)
 
 
-def gen_tasks(seed, n, maxq, maxt):
+def ptxas_summary(log: str) -> list:
+    """One line per kernel instance from nvcc -Xptxas -v: the kernel's name
+    with its template arguments, registers, stack and spill bytes."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            sym = m.group(1)
+            k = re.search(r"ksw_[a-z_]+_kernel", sym)
+            targs = re.findall(r"L[ib](\d+)E", sym[k.end():].split("Ev")[0]) \
+                if k else []
+            name = (k.group(0) if k else sym) + \
+                (f"<{', '.join(targs)}>" if targs else "")
+            spill = ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {spill}")
+            name = None
+    return out
+
+
+def gen_tasks(seed, n, maxq, maxt, full=False):
     """Adversarial extension tasks: random, planted-with-errors, duplicated
-    and N-containing (the shape envelope of the production path)."""
+    and N-containing (the shape envelope of the production path). With
+    ``full`` every query has the whole width maxq."""
     import numpy as np
     rng = np.random.default_rng(seed)
     qs = np.full((n, maxq), 4, np.int32)
     ts = np.full((n, maxt), 4, np.int32)
     qlen = rng.integers(5, maxq + 1, n).astype(np.int32)
+    if full:
+        qlen[:] = maxq
     tlen = rng.integers(10, maxt + 1, n).astype(np.int32)
     for i in range(n):
         t = rng.integers(0, 4, tlen[i]).astype(np.int32)
@@ -142,7 +180,18 @@ def gen_tasks(seed, n, maxq, maxt):
 
 
 def time_ms(fn, reps: int) -> float:
+    """Mean time of fn on the card over reps calls (CUDA events), after one
+    call to warm up; reps = 0 times that one call."""
     import torch
+    if reps == 0:
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -155,34 +204,92 @@ def time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def k1_measure(args, zdrop=100, kernel_reps=20, plain_reps=2):
-    """Run K1 and ksw_extend_ref on the same card tensors; returns a dict
-    with the max abs difference, both times and the bound."""
+def max_abs_diff(got, want) -> int:
     import torch
-    from tpubwa_torch.ops.sw import ksw_extend, ksw_extend_ref
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+
+
+def k1_measure(args, zdrop=100, kernel_reps=20, plain_reps=2, generic=False):
+    """Run K1 and ksw_extend_ref on the same card tensors; returns a dict
+    with the max abs difference, both times and the bound. The plain
+    version is timed over plain_reps runs after the one that gives the
+    values to compare, or, with plain_reps = 0, in that one. With ``generic``
+    the generic (shared-memory) instance is also held to the plain version
+    and timed on the same inputs, in turns with the instance the wrapper
+    picks (generic, picked, picked, generic)."""
+    import torch
+    from tpubwa_torch.ops.sw import ksw_extend, ksw_extend_ref, launch_kernel
     q, ql, t, tl, h0, w, eb, valid = args
     kw = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=zdrop, a=1, b=4)
     got = ksw_extend(*args, **kw)
-    stats = {}
-    want = ksw_extend_ref(*args, **kw, stats=stats)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
-        if got.numel() else 0
+    stats, ref = {}, []
+    first_ms = time_ms(lambda: ref.append(
+        ksw_extend_ref(*args, **kw, stats=stats)), 0)
+    want = ref[0]
+    err = max_abs_diff(got, want)
+    extra = {}
+    if generic:
+        err = max(err, max_abs_diff(launch_kernel(args, 0, **kw), want))
+        g1 = time_ms(lambda: launch_kernel(args, 0, **kw), kernel_reps)
     ms = time_ms(lambda: ksw_extend(*args, **kw), kernel_reps)
-    plain_ms = time_ms(lambda: ksw_extend_ref(*args, **kw), plain_reps)
+    if generic:
+        ms = (ms + time_ms(lambda: ksw_extend(*args, **kw), kernel_reps)) / 2
+        g2 = time_ms(lambda: launch_kernel(args, 0, **kw), kernel_reps)
+        extra["generic_ms"] = (g1 + g2) / 2
+    plain_ms = time_ms(lambda: ksw_extend_ref(*args, **kw), plain_reps) \
+        if plain_reps else first_ms
     nbytes = sum(x.numel() * x.element_size() for x in args) + \
         got.numel() * got.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = stats["cells"] * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    cells = stats.get("cells", 0)        # no row ran: every task was dead
+    t_ops = cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                cells=stats["cells"], bytes=nbytes)
+                cells=cells, bytes=nbytes, **extra)
+
+
+# Query widths of the edge sweeps: at and around boundaries between two
+# register instances (Q a multiple of 32), the widest register instance of
+# K2 (256) and of K1 (288), and one width that takes the generic instance of
+# both.
+EDGE_Q = (31, 32, 33, 127, 128, 129, 159, 160, 161, 255, 256, 257, 288, 300)
+
+
+def edge_tasks(n, Q, T, seed):
+    """Tasks for the kernels' edge sweeps as numpy arrays (qs, qlen, ts,
+    tlen, h0, w, valid): the gen_tasks mix, with every query at full width
+    when the seed is odd, and in rows 3.. a query of one base, a target of
+    one base, h0 just inside, just outside and far outside what K1's packed
+    key holds (max(h0, 0) + a * qlen < 2**22; these three queries match
+    their targets exactly, so that H reaches that sum), h0 = 0, and bands
+    of half-width 0, 1, 3 and 100 in turn so that some go empty."""
+    import numpy as np
+    qs, qlen, ts, tlen, h0, valid = gen_tasks(seed, n, Q, T,
+                                              full=bool(seed & 1))
+    w = np.array([0, 1, 3, 100] * n, np.int32)[:n]
+    if n == 1:
+        valid[0], w[0] = 1, 100
+    if n >= 12:
+        qlen[3], tlen[4] = 1, 1
+        h0[5] = (1 << 22) - qlen[5] - 1
+        h0[6] = (1 << 22) - qlen[6]
+        h0[7] = 1 << 24
+        h0[8] = 0
+        w[5:9] = 100
+        for i in (5, 6, 7):       # exact matches: H really climbs to
+            valid[i] = 1          # h0 + a * qlen, the limit's other side
+            tlen[i] = maxt = ts.shape[1]
+            ts[i] = np.random.default_rng(seed + i).integers(0, 4, maxt)
+            qs[i, :qlen[i]] = ts[i, :qlen[i]]
+    return qs, qlen, ts, tlen, h0, w, valid
 
 
 def parity(card: str):
     """K1 bit-equal to ksw_extend_ref on the card over the sweep shapes."""
     import torch
+    from tpubwa_torch.ops import sw
     dev = torch.device("cuda")
     shapes = [(100, Q, T, 100, 100) for Q in (100, 151, 256)
               for T in (256, 512, 768, 1024)]
@@ -194,7 +301,7 @@ def parity(card: str):
         c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
         args = (c(qs), c(qlen), c(ts), c(tlen), c(h0),
                 c([w] * n), c([5] * n), c(valid))
-        r = k1_measure(args, zdrop=zdrop, kernel_reps=5, plain_reps=1)
+        r = k1_measure(args, zdrop=zdrop, kernel_reps=5, plain_reps=0)
         worst = max(worst, r["max_abs_err"])
         print(f"parity N={n:5d} Q={Q:3d} T={T:4d} w={w:3d} zdrop={zdrop:3d}:"
               f" max_abs_err={r['max_abs_err']} (tolerance 0)"
@@ -204,24 +311,56 @@ def parity(card: str):
         if r["max_abs_err"] != 0:
             raise AssertionError(f"K1 differs from ksw_extend_ref at "
                                  f"N={n} Q={Q} T={T}")
+    # the edge sweep, in the instance the wrapper picks and in the generic
+    edge = [(128, Q, 200 + Q, 100) for Q in EDGE_Q]
+    edge += [(1, 100, 290, 100), (1, 33, 80, 100), (128, 100, 290, 10),
+             (128, 151, 440, 100)]
+    for k, (n, Q, T, zdrop) in enumerate(edge):
+        qs, qlen, ts, tlen, h0, w, valid = edge_tasks(n, Q, T, 1000 + k)
+        c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
+        args = (c(qs), c(qlen), c(ts), c(tlen), c(h0), c(w), c([5] * n),
+                c(valid))
+        r = k1_measure(args, zdrop=zdrop, kernel_reps=5, plain_reps=0,
+                       generic=True)
+        worst = max(worst, r["max_abs_err"])
+        print(f"parity edge N={n:3d} Q={Q:3d} T={T:3d} zdrop={zdrop:3d} "
+              f"instance {sw.kernel_instance(Q)} and generic: max_abs_err="
+              f"{r['max_abs_err']} (tolerance 0) kernel {r['ms']:.4f} ms, "
+              f"generic {r['generic_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms [{card}]", flush=True)
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"K1 differs from ksw_extend_ref on the "
+                                 f"edge sweep at N={n} Q={Q} T={T}")
     return worst
 
 
-def k2_measure(args, want_sub: bool, kernel_reps=20, plain_reps=2):
+def k2_measure(args, want_sub: bool, kernel_reps=20, plain_reps=2,
+               generic=False):
     """Run K2 and ksw_local_ref on the same card tensors; returns a dict
     with the max abs difference, both times and the bound. The DP cells
-    are what these inputs need: qlen x tlen summed over the valid tasks."""
+    are what these inputs need: qlen x tlen summed over the valid tasks.
+    ``generic`` as in k1_measure."""
     import torch
-    from tpubwa_torch.ops.sw_local import ksw_local, ksw_local_ref
+    from tpubwa_torch.ops.sw_local import (ksw_local, ksw_local_ref,
+                                           launch_kernel)
     q, ql, t, tl, minsc, valid = args
     kw = dict(SCORING, want_sub=want_sub)
     got = ksw_local(*args, **kw)
-    want = ksw_local_ref(*args, **kw)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
-        if got.numel() else 0
+    ref = []
+    first_ms = time_ms(lambda: ref.append(ksw_local_ref(*args, **kw)), 0)
+    want = ref[0]
+    err = max_abs_diff(got, want)
+    extra = {}
+    if generic:
+        err = max(err, max_abs_diff(launch_kernel(args, 0, **kw), want))
+        g1 = time_ms(lambda: launch_kernel(args, 0, **kw), kernel_reps)
     ms = time_ms(lambda: ksw_local(*args, **kw), kernel_reps)
-    plain_ms = time_ms(lambda: ksw_local_ref(*args, **kw), plain_reps)
+    if generic:
+        ms = (ms + time_ms(lambda: ksw_local(*args, **kw), kernel_reps)) / 2
+        g2 = time_ms(lambda: launch_kernel(args, 0, **kw), kernel_reps)
+        extra["generic_ms"] = (g1 + g2) / 2
+    plain_ms = time_ms(lambda: ksw_local_ref(*args, **kw), plain_reps) \
+        if plain_reps else first_ms
     cells = int((ql.clamp(0, q.shape[1]).to(torch.int64)
                  * tl.clamp(0, t.shape[1]).to(torch.int64)
                  * (valid != 0)).sum())
@@ -232,7 +371,7 @@ def k2_measure(args, want_sub: bool, kernel_reps=20, plain_reps=2):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                cells=cells, bytes=nbytes)
+                cells=cells, bytes=nbytes, **extra)
 
 
 def local_tasks(n, Q, T, dev):
@@ -251,6 +390,7 @@ def parity_k2(card: str):
     import numpy as np
     import torch
     from tpubwa_torch import oracle
+    from tpubwa_torch.ops import sw_local
     from tpubwa_torch.opts import MemOptions
     from tpubwa_torch.pair.rescue import ksw_align_batch
     dev = torch.device("cuda")
@@ -261,7 +401,7 @@ def parity_k2(card: str):
     for n, Q, T in shapes:
         args = local_tasks(n, Q, T, dev)
         for want_sub in (True, False):
-            r = k2_measure(args, want_sub, kernel_reps=5, plain_reps=1)
+            r = k2_measure(args, want_sub, kernel_reps=5, plain_reps=0)
             worst = max(worst, r["max_abs_err"])
             print(f"parity K2 N={n:5d} Q={Q:3d} T={T:4d} "
                   f"want_sub={int(want_sub)}: max_abs_err={r['max_abs_err']}"
@@ -271,6 +411,30 @@ def parity_k2(card: str):
             if r["max_abs_err"] != 0:
                 raise AssertionError(f"K2 differs from ksw_local_ref at "
                                      f"N={n} Q={Q} T={T} want_sub={want_sub}")
+    # the edge sweep (K1's tasks without h0 and w; row 1 gets qlen 0), in
+    # the instance the wrapper picks and in the generic one
+    edge = [(128, Q, 200 + Q) for Q in EDGE_Q]
+    edge += [(1, 150, 768), (1, 33, 80), (128, 150, 768)]
+    for k, (n, Q, T) in enumerate(edge):
+        qs, qlen, ts, tlen, _, _, valid = edge_tasks(n, Q, T, 2000 + k)
+        if n > 1:
+            qlen[1] = 0
+        c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
+        args = (c(qs), c(qlen), c(ts), c(tlen), c([19] * n), c(valid))
+        for want_sub in (True, False):
+            r = k2_measure(args, want_sub, kernel_reps=5, plain_reps=0,
+                           generic=True)
+            worst = max(worst, r["max_abs_err"])
+            print(f"parity K2 edge N={n:3d} Q={Q:3d} T={T:3d} want_sub="
+                  f"{int(want_sub)} instance {sw_local.kernel_instance(Q)} "
+                  f"and generic: max_abs_err={r['max_abs_err']} (tolerance "
+                  f"0) kernel {r['ms']:.4f} ms, generic "
+                  f"{r['generic_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+                  f"[{card}]", flush=True)
+            if r["max_abs_err"] != 0:
+                raise AssertionError(f"K2 differs from ksw_local_ref on the "
+                                     f"edge sweep at N={n} Q={Q} T={T} "
+                                     f"want_sub={want_sub}")
     # the composed function (forward pass, reversed prefixes, reverse pass)
     # against the scalar ksw_align, an independent implementation
     q, ql, t, tl, minsc, _ = local_tasks(100, 151, 512, dev)
@@ -289,6 +453,113 @@ def parity_k2(card: str):
         raise AssertionError("ksw_align_batch differs from the scalar "
                              "ksw_align")
     return worst
+
+
+def row_latency(card: str):
+    """Latency of one DP row of each kernel, register and generic instance
+    side by side: one task (so nothing else shares the card) whose loop
+    runs every target row, timed at two target lengths; the slope is the
+    time of a row, what is left at zero rows is the cost of a launch. K1's
+    task has h0 = 5000, no z-drop and a band and end bonus of 2000, so its
+    band is the whole query and stays live on every row; both kernels then
+    run tlen rows (256 and 1024), each launch long enough that the host's
+    launch rate does not show."""
+    import numpy as np
+    import torch
+    from tpubwa_torch.ops import sw, sw_local
+    from tpubwa_torch.ops.cubuild import KernelLib
+    dev = torch.device("cuda")
+    c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa: E731
+    rng = np.random.default_rng(5)
+    # the same sources built without the DPX instructions (plain max())
+    no_dpx = {m: KernelLib(m._KERNEL.src.stem, ("KSW_NO_DPX",))
+              for m in (sw, sw_local)}
+
+    def slope(launch, want, what):
+        """us a row and us at zero rows of launch(rows), checked against
+        the plain version's results want[rows] first."""
+        ts = {}
+        for rows in (256, 1024):
+            if max_abs_diff(launch(rows), want[rows]):
+                raise AssertionError(f"{what} differs from its plain version "
+                                     "on the row-latency task")
+            ts[rows] = time_ms(lambda: launch(rows), 200)
+        row_us = (ts[1024] - ts[256]) / 768 * 1e3
+        return row_us, ts[256] * 1e3 - 256 * row_us
+
+    how = "(one task, 256 and 1024 rows, 200 launches each)"
+    for Q in (100, 150):
+        t = rng.integers(0, 4, (1, 1024)).astype(np.int32)
+        q = t[:, :Q].copy()
+        a1 = {rows: (c(q), c([Q]), c(t[:, :rows]), c([rows]), c([5000]),
+                     c([2000]), c([2000]), c([1])) for rows in (256, 1024)}
+        kw1 = dict(SCORING, zdrop=0)
+        want = {rows: sw.ksw_extend_ref(*a, **kw1) for rows, a in a1.items()}
+        for name, inst, lib in (
+                ("register", sw.kernel_instance(Q), sw._KERNEL),
+                ("register, built without DPX,", sw.kernel_instance(Q),
+                 no_dpx[sw]), ("generic", 0, sw._KERNEL)):
+            row_us, floor_us = slope(lambda rows: sw.launch_kernel(
+                a1[rows], inst, kernel=lib, **kw1), want, "K1")
+            print(f"row latency K1 Q={Q} {name} instance {inst}: "
+                  f"{row_us:.4f} us a row, {floor_us:.2f} us at zero rows "
+                  f"{how} [{card}]", flush=True)
+        a2 = {rows: (c(q), c([Q]), c(t[:, :rows]), c([rows]), c([19]),
+                     c([1])) for rows in (256, 1024)}
+        for want_sub in (True, False):
+            kw2 = dict(SCORING, want_sub=want_sub)
+            want = {rows: sw_local.ksw_local_ref(*a, **kw2)
+                    for rows, a in a2.items()}
+            for name, inst, lib in (
+                    ("register", sw_local.kernel_instance(Q),
+                     sw_local._KERNEL),
+                    ("register, built without DPX,",
+                     sw_local.kernel_instance(Q), no_dpx[sw_local]),
+                    ("generic", 0, sw_local._KERNEL)):
+                row_us, floor_us = slope(lambda rows: sw_local.launch_kernel(
+                    a2[rows], inst, kernel=lib, **kw2), want, "K2")
+                print(f"row latency K2 Q={Q} want_sub={int(want_sub)} {name} "
+                      f"instance {inst}: {row_us:.4f} us a row, "
+                      f"{floor_us:.2f} us at zero rows {how} [{card}]",
+                      flush=True)
+
+
+def k1_recorder(real, first: list, log: list):
+    """A stand-in for worker.ksw_extend that calls the real wrapper, keeps
+    the first call's inputs in ``first`` (when given) and every call's
+    shape (N, Q, T) in ``log``."""
+    def recorder(*args, **kw):
+        if first is not None and not first:
+            first.append(tuple(a.clone() for a in args))
+        log.append((args[0].shape[0], args[0].shape[1], args[2].shape[1]))
+        return real(*args, **kw)
+    return recorder
+
+
+def print_k1_shapes(label: str, log: list, what: str, card: str,
+                    kernel_ms: list = None):
+    """K1's launches by shape (N, Q, T); with ``kernel_ms`` (each launch's
+    kernel time from a profiler trace, in launch order) also the summed
+    and mean kernel time of each shape."""
+    by = {}
+    for k, shape in enumerate(log):
+        c, ms = by.get(shape, (0, 0.0))
+        by[shape] = (c + 1, ms + (kernel_ms[k] if kernel_ms else 0.0))
+    total = sum(ms for _, ms in by.values())
+    timed = f", {total:.3f} ms of kernel time in all" if kernel_ms else ""
+    print(f"{label} K1 launches by shape over {what}: {len(log)} launches, "
+          f"{len(by)} shapes{timed} [{card}]", flush=True)
+    rows = sorted(by.items(), key=lambda x: (-x[1][1], -x[1][0]))
+    for (n, q, t), (c, ms) in rows[:12]:
+        each = f", {ms:9.3f} ms summed, {ms / c:.4f} ms each" \
+            if kernel_ms else ""
+        print(f"{label} K1 shape N={n:5d} Q={q:3d} T={t:4d}: {c:4d} "
+              f"launches{each}", flush=True)
+    if len(rows) > 12:
+        c = sum(v[0] for _, v in rows[12:])
+        ms = sum(v[1] for _, v in rows[12:])
+        print(f"{label} K1 other shapes ({len(rows) - 12}): {c} launches"
+              + (f", {ms:.3f} ms summed" if kernel_ms else ""), flush=True)
 
 
 def get_index():
@@ -333,16 +604,11 @@ def e2e(card: str):
     if warm != aln.oracle.align_se(batches[0], aln.opt, id0=0):
         raise AssertionError("warm-up batch SAM differs from the oracle")
 
-    # record the first main-path K1 call's inputs (the call itself goes
-    # through the real wrapper and is counted)
-    recorded = []
+    # record the first main-path K1 call's inputs and every call's shape
+    # and time (the calls go through the real wrapper and are counted)
+    recorded, k1_log = [], []
     real = worker.ksw_extend
-
-    def recorder(*args, **kw):
-        if not recorded:
-            recorded.append(tuple(a.clone() for a in args))
-        return real(*args, **kw)
-    worker.ksw_extend = recorder
+    worker.ksw_extend = k1_recorder(real, recorded, k1_log)
     aln.stats = {"reads": 0, "fallback_reads": 0}
     try:
         sw.ksw_extend.launches = 0
@@ -371,6 +637,7 @@ def e2e(card: str):
           f"K1 launches {launches} [{card}]", flush=True)
     if launches <= 0:
         raise AssertionError("the main path launched K1 no time")
+    print_k1_shapes("e2e", k1_log, f"{TIMED_BATCHES} timed batches", card)
     stages(aln, batches[1], BATCH, card)
     device_share(aln, batches[2], 2 * BATCH, card)
     return aln, recorded[0], launches, rps
@@ -481,12 +748,9 @@ def pe_e2e(aln, card: str):
         k2_by[want_sub] += sw_local.ksw_local.launches - before
         return r
 
-    def recorder_k1(*args, **kw):
-        if "k1" not in recorded:
-            recorded["k1"] = tuple(a.clone() for a in args)
-        return real_k1(*args, **kw)
+    k1_first, k1_log = [], []
     rescue.ksw_local = recorder
-    worker.ksw_extend = recorder_k1
+    worker.ksw_extend = k1_recorder(real_k1, k1_first, k1_log)
     lib = aln.oracle._lib
     aln.stats = {"reads": 0, "fallback_reads": 0}
     try:
@@ -535,9 +799,11 @@ def pe_e2e(aln, card: str):
                              "launch for each")
     if k1 <= 0:
         raise AssertionError("the PE main path launched K1 no time")
+    print_k1_shapes("e2e PE", k1_log, f"{PE_TIMED_BATCHES} timed batches",
+                    card)
     pe_stages(aln, batches[1], PE_PAIRS, card)
     device_share(aln, batches[2], 2 * PE_PAIRS, card, paired=True)
-    return recorded["k1"], recorded[True], recorded[False], k1, k2_by, rps
+    return k1_first[0], recorded[True], recorded[False], k1, k2_by, rps
 
 
 def pe_stages(aln, batch, id0: int, card: str):
@@ -599,18 +865,27 @@ def pe_stages(aln, batch, id0: int, card: str):
 def device_share(aln, batch, id0: int, card: str, paired: bool = False):
     """Device busy share of one align_se (or align_pe) batch: the union of
     the CUDA kernel intervals in a torch.profiler trace over the host wall
-    time, and the kernels that take most device time. A trace that shows
-    no device time prints "not measured"."""
+    time, the kernels that take most device time, the two hand-written
+    kernels' device time, and K1's launches of the batch by shape with
+    each shape's kernel time from the trace. A trace that shows no device
+    time prints "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from tpubwa_torch.extend import worker
+    k1_log = []
+    real_k1 = worker.ksw_extend
+    worker.ksw_extend = k1_recorder(real_k1, None, k1_log)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sam = (aln.align_pe if paired else aln.align_se)(batch, id0=id0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sam = (aln.align_pe if paired else aln.align_se)(batch, id0=id0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        worker.ksw_extend = real_k1
     want = aln.oracle.align_pe(batch, aln.opt, id0=id0)[0] if paired \
         else aln.oracle.align_se(batch, aln.opt, id0=id0)
     if sam != want:
@@ -638,6 +913,19 @@ def device_share(aln, batch, id0: int, card: str, paired: bool = False):
           f"{len(spans)} kernels) [{card}]", flush=True)
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
         print(f"  device {us / 1e3:9.2f} ms  {name[:90]}", flush=True)
+    label = "profiled PE batch" if paired else "profiled SE batch"
+    for kern in ("ksw_extend", "ksw_local"):
+        us = sum(v for n, v in by_name.items() if kern in n)
+        print(f"{label}: {kern} kernels {us / 1e3:.3f} ms of device time "
+              f"[{card}]", flush=True)
+    k1_ev = sorted((e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "ksw_extend" in e.name)
+    # one stream, so the trace's K1 kernels are in launch order
+    print_k1_shapes(label, k1_log, "the batch", card,
+                    [us / 1e3 for _, us in k1_ev]
+                    if len(k1_ev) == len(k1_log) else None)
 
 
 def main() -> int:
@@ -659,15 +947,24 @@ def main() -> int:
     build()
     worst = parity(card)
     worst2 = parity_k2(card)
+    row_latency(card)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if sys.argv[1:] == ["kernels"]:
+        print(f"{card}")
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build, parity and row latency only"}))
+        return 0
     aln, k1_args, launches, rps = e2e(card)
     k1_pe_args, k2_fwd, k2_rev, pe_k1, pe_k2, pe_rps = pe_e2e(aln, card)
     r1 = {}
     for path, args, n_l in (("SE", k1_args, launches),
                             ("PE", k1_pe_args, pe_k1)):
-        r1[path] = r = k1_measure(args)
+        r1[path] = r = k1_measure(args, generic=True)
         print(f"K1 {path} main-path call N={args[0].shape[0]} "
               f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
               f"{r['max_abs_err']} (tolerance 0) kernel {r['ms']:.4f} ms, "
+              f"generic instance {r['generic_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}: {r['cells']} band cells, {r['bytes']} "
               f"bytes); {n_l} launches on the {path} path [{card}]",
@@ -677,11 +974,12 @@ def main() -> int:
                                  f"{path} main-path inputs")
     r2 = {}
     for want_sub, args in ((True, k2_fwd), (False, k2_rev)):
-        r2[want_sub] = m = k2_measure(args, want_sub)
+        r2[want_sub] = m = k2_measure(args, want_sub, generic=True)
         print(f"K2 main-path {'forward' if want_sub else 'reverse'} call "
               f"N={args[0].shape[0]} Q={args[0].shape[1]} "
               f"T={args[2].shape[1]}: max_abs_err={m['max_abs_err']} "
-              f"(tolerance 0) kernel {m['ms']:.4f} ms, plain "
+              f"(tolerance 0) kernel {m['ms']:.4f} ms, generic instance "
+              f"{m['generic_ms']:.4f} ms, plain "
               f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms "
               f"({m['bound_by']}: {m['cells']} cells, {m['bytes']} bytes); "
               f"{pe_k2[want_sub]} launches on the PE path [{card}]",
@@ -698,7 +996,7 @@ def main() -> int:
                 "max_abs_err": max(sweep_err, m["max_abs_err"]),
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": None}
+                "library_ms": None, "generic_ms": m["generic_ms"]}
     # one entry per kernel and path: K1 on the SE path and on the PE path
     # (other shapes, its own launch count), K2's two template instances
     kernels = [
@@ -714,9 +1012,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
     print(f"e2e reads/s: SE {rps:.1f}, PE {pe_rps:.1f}")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

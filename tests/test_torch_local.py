@@ -3,9 +3,12 @@
 The plain version ``ksw_local_ref`` against the reference's scan-level
 ``ksw_local_batch``, the reference's TPU kernel ``ksw_local_pallas`` in
 interpret mode (both ``want_sub`` modes) and the scalar oracle, on the
-task mix of tests/test_local_align.py. Tolerance 0: scores and coordinates
-are integers. The CUDA kernel is held to the same plain version on the
-card (marked `cuda`, skipped without one).
+task mix of tests/test_local_align.py, and against the first two on the
+shapes where the CUDA kernel changes instance (query widths around the
+multiples of 32, full-width and one-base queries). Tolerance 0: scores and
+coordinates are integers. The CUDA kernel is held to the same plain version
+on the card (marked `cuda`, skipped without one); which instance a width
+takes, and what the wrapper refuses, is tested here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -153,10 +156,76 @@ def test_wrapper_uses_plain_version_for_cpu_tensors_only():
 
 
 def test_shared_memory_budget():
-    # the largest production shape fits one block; an absurd one is refused
-    assert sw_local.smem_bytes(256, 1024, True) <= 48 * 1024
-    assert sw_local.smem_bytes(256, 1024, False) == 16 * 1024
+    # a register instance keeps only the T stored row maxima of want_sub;
+    # the largest production shape fits one block, an absurd one is refused
+    assert sw_local.smem_bytes(256, 1024, True) == 16 * 1024
+    assert sw_local.smem_bytes(256, 1024, False) == 0
+    # the generic instance adds four rows over the query
+    assert sw_local.smem_bytes(256, 1024, False, instance=0) == 16 * 1024
+    assert sw_local.smem_bytes(320, 1024, True) == 16 * 1024 + 20 * 1024
     assert sw_local.smem_bytes(4096, 65536, True) > sw_local._SMEM_MAX
+
+
+# query widths at and around the register instances' boundaries (multiples
+# of 32), the widest register instance (256) and the generic one beyond
+BOUNDARY_Q = (31, 32, 33, 64, 65, 128, 129, 256, 257)
+
+
+def boundary_cases(Q, n=12, T=128):
+    """n tasks of query width Q from a numpy seed: the gen_tasks mix, with
+    rows of qlen = Q, qlen = 1, qlen = 32 and 33 (a lane boundary inside
+    the task's own split), tlen = 1 and tlen = T, an invalid row."""
+    qs, qlen, ts, tlen = gen_tasks(1000 + Q, n=n, maxq=Q, maxt=T)
+    rng = np.random.default_rng(Q)
+    for i in (0, 2):                   # full-width queries: fill the tail
+        qs[i, qlen[i]:] = rng.integers(0, 4, Q - qlen[i])
+        qlen[i] = Q
+    qlen[1], qlen[3], qlen[4] = 1, min(32, Q), min(33, Q)
+    qs[3], qs[4] = np.where(qs[3] > 3, 0, qs[3]), np.where(qs[4] > 3, 1, qs[4])
+    tlen[5], tlen[0] = 1, T
+    valid = np.ones(n, np.int32)
+    valid[6] = 0
+    minsc = np.full(n, OPT.min_seed_len * OPT.a, np.int32)
+    return qs, qlen, ts, tlen, minsc, valid
+
+
+@pytest.mark.parametrize("want_sub", [True, False])
+@pytest.mark.parametrize("Q", BOUNDARY_Q)
+def test_ref_matches_scan_and_kernel_on_boundary_shapes(Q, want_sub):
+    args = boundary_cases(Q)
+    got = port(*args, want_sub)
+    np.testing.assert_array_equal(got, reference_scan(*args, want_sub))
+    np.testing.assert_array_equal(got, reference_kernel(*args, want_sub))
+    assert got[0, 0] > 0 and got[6, 0] == 0
+
+
+@pytest.mark.parametrize("Q,instance", [
+    (1, 1), (32, 1), (33, 2), (100, 4), (128, 4), (129, 5), (150, 5),
+    (151, 5), (160, 5), (161, 6), (256, 8), (257, 0), (1024, 0)])
+def test_kernel_instance_follows_query_width(Q, instance):
+    """K = ceil(Q / 32) columns a lane up to MAX_K, the generic instance
+    (0) beyond; the width alone decides."""
+    assert sw_local.kernel_instance(Q) == instance
+    if instance:
+        assert 32 * (instance - 1) < Q <= 32 * instance <= \
+            32 * sw_local.MAX_K
+
+
+def test_launch_refuses_oversized_rows_and_cpu_tensors():
+    args = [torch.tensor(np.asarray(a, np.int32)) for a in cases(2)]
+    before = sw_local.ksw_local.launches
+    big = torch.zeros((len(args[1]), 65536), dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sw_local.launch_kernel(args, 4, want_sub=True, **KW)
+    with pytest.raises(ValueError, match="shared memory"):
+        sw_local.launch_kernel([args[0], args[1], big, *args[3:]], 4,
+                               want_sub=True, **KW)
+    # without want_sub a register instance stores nothing: only the device
+    # is wrong
+    with pytest.raises(ValueError, match="unsupported device"):
+        sw_local.launch_kernel([args[0], args[1], big, *args[3:]], 4,
+                               want_sub=False, **KW)
+    assert sw_local.ksw_local.launches == before
 
 
 @pytest.fixture
@@ -181,6 +250,26 @@ def test_kernel_matches_plain_on_card(cuda_device, seed, want_sub):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("want_sub", [True, False])
+@pytest.mark.parametrize("n", [1, 128])
+@pytest.mark.parametrize("Q", BOUNDARY_Q)
+def test_kernel_matches_plain_on_boundary_shapes(cuda_device, Q, n, want_sub):
+    """Every instance a width can take (the one the wrapper picks and the
+    generic one) against the plain version, at N = 1 and N = 128."""
+    args = boundary_cases(Q, n=max(n, 12), T=200)
+    if n == 1:                       # row 0: a full-width query
+        args = tuple(a[:1] for a in args)
+    t = [torch.tensor(np.asarray(a, np.int32)).to(cuda_device) for a in args]
+    kw = dict(KW, want_sub=want_sub)
+    want = sw_local.ksw_local_ref(*t, **kw).cpu().numpy()
+    got = sw_local.ksw_local(*t, **kw)
+    generic = sw_local.launch_kernel(t, 0, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(generic.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_rejects_bad_input(cuda_device):
     t = [torch.tensor(np.asarray(a, np.int32)).to(cuda_device)
          for a in cases(2)]
@@ -192,3 +281,5 @@ def test_kernel_wrapper_rejects_bad_input(cuda_device):
         big = torch.zeros((len(t[1]), 65536), dtype=torch.int32,
                           device=cuda_device)
         sw_local.ksw_local(t[0], t[1], big, *t[3:], want_sub=True, **KW)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sw_local.launch_kernel(t, 1, want_sub=True, **KW)  # K = 1 < Q / 32

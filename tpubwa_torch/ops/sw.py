@@ -10,7 +10,10 @@ Two implementations of one function, decided by the tensors' device:
 * ``ksw_extend`` — the wrapper: CPU tensors go to ``ksw_extend_ref``; CUDA
   tensors go to the hand-written kernel in ``csrc/ksw_extend.cu`` (built
   with nvcc at first use, bound with ctypes) or raise. There is no
-  fallback from the kernel to the plain version.
+  fallback from the kernel to the plain version. The kernel has register
+  instances (a lane keeps K columns of the DP row in registers) for
+  Q <= 288 and a generic shared-memory instance beyond; the query width
+  alone decides (``kernel_instance``).
 
 Both return (N, 6) int32: score, qle, tle, gtle, gscore, max_off, with the
 bwa 5x5 matrix (match a, mismatch -b, N scores -1).
@@ -22,13 +25,16 @@ import threading
 
 import torch
 
-from .cubuild import KernelLib, check_task_args
+from .cubuild import SMEM_MAX, WARPS, KernelLib, check_task_args
 
 NEG = -(2**30)
 _I32 = torch.int32
 
 _KERNEL = KernelLib("ksw_extend")
 _count_lock = threading.Lock()
+# must match csrc/ksw_extend.cu: the largest register instance (columns a
+# lane owns)
+MAX_K = 9
 
 
 def _scmat(a: int, b: int, device) -> torch.Tensor:
@@ -174,13 +180,64 @@ def ksw_extend_ref(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
 def _declare(lib: C.CDLL) -> None:
     lib.ksw_extend_launch.restype = C.c_int
     lib.ksw_extend_launch.argtypes = \
-        [C.c_void_p] * 9 + [C.c_int] * 10 + [C.c_void_p]
+        [C.c_void_p] * 9 + [C.c_int] * 11 + [C.c_void_p]
+
+
+def kernel_instance(Q: int) -> int:
+    """Which instance of the kernel takes queries of width Q: K, the
+    columns that each of the 32 lanes keeps in registers (1..MAX_K), or 0
+    for the generic shared-memory instance when Q > 32 * MAX_K. Raises
+    ValueError when the generic instance's rows do not fit one block's
+    shared memory."""
+    K = max(1, -(-Q // 32))
+    if K <= MAX_K:
+        return K
+    need = WARPS * 4 * 4 * (Q + 1)       # four (Q + 1)-int rows per task
+    if need > SMEM_MAX:
+        raise ValueError(f"ksw_extend: Q={Q} needs {need} bytes of shared "
+                         f"memory per block, over the {SMEM_MAX} available")
+    return 0
 
 
 def build_lib():
     """Compile csrc/ksw_extend.cu for sm_90a into build/tpubwa_torch/.
     Returns the library path."""
     return _KERNEL.build()
+
+
+def launch_kernel(args, instance: int, *, o_del: int, e_del: int,
+                  o_ins: int, e_ins: int, zdrop: int, a: int, b: int,
+                  kernel: KernelLib = _KERNEL) -> torch.Tensor:
+    """Launch one given instance of the kernel on checked CUDA tensors
+    (``ksw_extend`` picks the instance; a measurement may name another
+    that holds Q, such as the generic one, or another build of the source
+    as ``kernel``). Counts the launch."""
+    query, target = args[0], args[2]
+    if target.dim() != 2:
+        raise ValueError("ksw_extend: query and target must be 2-D")
+    if min(e_del, e_ins) <= 0 or min(o_del, o_ins) < 0:
+        # the band clip divides by the extension penalties, and the kernel's
+        # live-band shrink relies on E' > 0 implying H > 0
+        raise ValueError("ksw_extend: gap extension penalties must be "
+                         "positive and gap open penalties not negative")
+    N = check_task_args("ksw_extend", ("query", "qlen", "target", "tlen",
+                                       "h0", "w", "end_bonus", "valid"), args)
+    Q, T = query.shape[1], target.shape[1]
+    out = torch.empty((N, 6), dtype=_I32, device=query.device)
+    if N == 0:
+        return out
+    lib = kernel.load(_declare)
+    ptrs = [x.data_ptr() for x in args] + [out.data_ptr()]
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ksw_extend_launch(*ptrs, N, Q, T, o_del, e_del, o_ins,
+                                    e_ins, zdrop, a, b, instance, stream)
+    with _count_lock:
+        ksw_extend.launches += 1
+    if err != 0:
+        raise RuntimeError(f"ksw_extend kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
 
 
 def ksw_extend(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
@@ -190,32 +247,17 @@ def ksw_extend(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
 
     CPU tensors run the plain version. CUDA tensors must be contiguous
     int32 on one device, query (N, Q), target (N, T), the rest (N,); the
-    kernel is launched on the current stream and its launch error, if
-    any, raises."""
+    kernel instance that ``kernel_instance(Q)`` names is launched on the
+    current stream and its launch error, if any, raises. A Q too wide for
+    any instance raises ValueError."""
     args = (query, qlen, target, tlen, h0, w, end_bonus, valid)
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+              zdrop=zdrop, a=a, b=b)
     if query.device.type == "cpu":
-        return ksw_extend_ref(*args, o_del=o_del, e_del=e_del, o_ins=o_ins,
-                              e_ins=e_ins, zdrop=zdrop, a=a, b=b)
-    if target.dim() != 2:
+        return ksw_extend_ref(*args, **kw)
+    if query.dim() != 2:
         raise ValueError("ksw_extend: query and target must be 2-D")
-    N = check_task_args("ksw_extend", ("query", "qlen", "target", "tlen",
-                                       "h0", "w", "end_bonus", "valid"), args)
-    Q, T = query.shape[1], target.shape[1]
-    out = torch.empty((N, 6), dtype=_I32, device=query.device)
-    if N == 0:
-        return out
-    lib = _KERNEL.load(_declare)
-    ptrs = [x.data_ptr() for x in args] + [out.data_ptr()]
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ksw_extend_launch(*ptrs, N, Q, T, o_del, e_del, o_ins,
-                                    e_ins, zdrop, a, b, stream)
-    with _count_lock:
-        ksw_extend.launches += 1
-    if err != 0:
-        raise RuntimeError(f"ksw_extend kernel launch failed: CUDA error "
-                           f"{err}")
-    return out
+    return launch_kernel(args, kernel_instance(query.shape[1]), **kw)
 
 
 ksw_extend.launches = 0

@@ -13,7 +13,10 @@ function, decided by the tensors' device:
 * ``ksw_local`` — the wrapper: CPU tensors go to ``ksw_local_ref``; CUDA
   tensors go to the hand-written kernel in ``csrc/ksw_local.cu`` (built
   with nvcc at first use, bound with ctypes) or raise. There is no
-  fallback from the kernel to the plain version.
+  fallback from the kernel to the plain version. The kernel has register
+  instances (a lane keeps K columns of the H and E rows in registers) for
+  Q <= 256 and a generic shared-memory instance beyond; the query width
+  alone decides (``kernel_instance``).
 
 Both return (N, 5) int32: score, te, qe, score2, te2 (0-based ends, -1
 when nothing scored). ``want_sub=False`` skips the run tracking and
@@ -26,16 +29,17 @@ import threading
 
 import torch
 
+from .cubuild import SMEM_MAX as _SMEM_MAX
+from .cubuild import WARPS as _WARPS
 from .cubuild import KernelLib, check_task_args
 from .sw import NEG, _scmat
 
 _I32 = torch.int32
 _KERNEL = KernelLib("ksw_local")
 _count_lock = threading.Lock()
-# must match csrc/ksw_local.cu: tasks (warps) per block, and the dynamic
-# shared memory one block may ask for on sm_90
-_WARPS = 4
-_SMEM_MAX = 227 * 1024
+# must match csrc/ksw_local.cu: the largest register instance (columns a
+# lane owns)
+MAX_K = 8
 
 
 def ksw_local_ref(query, qlen, target, tlen, minsc, valid, *,
@@ -119,7 +123,7 @@ def ksw_local_ref(query, qlen, target, tlen, minsc, valid, *,
 def _declare(lib: C.CDLL) -> None:
     lib.ksw_local_launch.restype = C.c_int
     lib.ksw_local_launch.argtypes = \
-        [C.c_void_p] * 7 + [C.c_int] * 10 + [C.c_void_p]
+        [C.c_void_p] * 7 + [C.c_int] * 11 + [C.c_void_p]
 
 
 def build_lib():
@@ -128,12 +132,61 @@ def build_lib():
     return _KERNEL.build()
 
 
-def smem_bytes(Q: int, T: int, want_sub: bool) -> int:
-    """Dynamic shared memory of one block of the kernel: per task four
-    rows over the query (codes, H, E, G; padded to whole 32-lane slots)
-    and, with want_sub, the T stored row maxima."""
-    K = (Q + 31) // 32
-    return _WARPS * 4 * (4 * 32 * K + (T if want_sub else 0))
+def kernel_instance(Q: int) -> int:
+    """Which instance of the kernel takes queries of width Q: K, the
+    columns that each of the 32 lanes keeps in registers (1..MAX_K), or 0
+    for the generic shared-memory instance when Q > 32 * MAX_K."""
+    K = max(1, -(-Q // 32))
+    return K if K <= MAX_K else 0
+
+
+def smem_bytes(Q: int, T: int, want_sub: bool, instance: int | None = None) \
+        -> int:
+    """Dynamic shared memory of one block of the kernel instance that takes
+    Q (or of the one named): with want_sub the T stored row maxima of each
+    task; in the generic instance also four rows over the query (codes, H,
+    E, G; padded to whole 32-lane slots)."""
+    if instance is None:
+        instance = kernel_instance(Q)
+    rows = 0 if instance else 4 * 32 * ((Q + 31) // 32)
+    return _WARPS * 4 * (rows + (T if want_sub else 0))
+
+
+def launch_kernel(args, instance: int, *, o_del: int, e_del: int,
+                  o_ins: int, e_ins: int, a: int, b: int,
+                  want_sub: bool = True,
+                  kernel: KernelLib = _KERNEL) -> torch.Tensor:
+    """Launch one given instance of the kernel on checked CUDA tensors
+    (``ksw_local`` picks the instance; a measurement may name another that
+    holds Q, such as the generic one, or another build of the source as
+    ``kernel``). Counts the launch."""
+    query, target = args[0], args[2]
+    if query.dim() != 2 or target.dim() != 2:
+        raise ValueError("ksw_local: query and target must be 2-D")
+    Q, T = query.shape[1], target.shape[1]
+    need = smem_bytes(Q, T, want_sub, instance)
+    if need > _SMEM_MAX:
+        raise ValueError(f"ksw_local: Q={Q}, T={T} needs {need} bytes of "
+                         f"shared memory per block, over the {_SMEM_MAX} "
+                         f"available")
+    N = check_task_args("ksw_local", ("query", "qlen", "target", "tlen",
+                                      "minsc", "valid"), args)
+    out = torch.empty((N, 5), dtype=_I32, device=query.device)
+    if N == 0:
+        return out
+    lib = kernel.load(_declare)
+    ptrs = [x.data_ptr() for x in args] + [out.data_ptr()]
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ksw_local_launch(*ptrs, N, Q, T, o_del, e_del, o_ins,
+                                   e_ins, a, b, int(bool(want_sub)),
+                                   instance, stream)
+    with _count_lock:
+        ksw_local.launches += 1
+    if err != 0:
+        raise RuntimeError(f"ksw_local kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
 
 
 def ksw_local(query, qlen, target, tlen, minsc, valid, *, o_del: int,
@@ -143,37 +196,17 @@ def ksw_local(query, qlen, target, tlen, minsc, valid, *, o_del: int,
 
     CPU tensors run the plain version. CUDA tensors must be contiguous
     int32 on one device, query (N, Q), target (N, T), the rest (N,); the
-    kernel is launched on the current stream and its launch error, if
-    any, raises. Shapes whose rows do not fit one block's shared memory
-    raise ValueError."""
+    kernel instance that ``kernel_instance(Q)`` names is launched on the
+    current stream and its launch error, if any, raises. Shapes whose rows
+    do not fit one block's shared memory raise ValueError."""
     args = (query, qlen, target, tlen, minsc, valid)
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins, a=a, b=b,
+              want_sub=want_sub)
     if query.device.type == "cpu":
-        return ksw_local_ref(*args, o_del=o_del, e_del=e_del, o_ins=o_ins,
-                             e_ins=e_ins, a=a, b=b, want_sub=want_sub)
-    if target.dim() != 2:
+        return ksw_local_ref(*args, **kw)
+    if query.dim() != 2:
         raise ValueError("ksw_local: query and target must be 2-D")
-    N = check_task_args("ksw_local", ("query", "qlen", "target", "tlen",
-                                      "minsc", "valid"), args)
-    Q, T = query.shape[1], target.shape[1]
-    if smem_bytes(Q, T, want_sub) > _SMEM_MAX:
-        raise ValueError(f"ksw_local: Q={Q}, T={T} needs "
-                         f"{smem_bytes(Q, T, want_sub)} bytes of shared "
-                         f"memory per block, over the {_SMEM_MAX} available")
-    out = torch.empty((N, 5), dtype=_I32, device=query.device)
-    if N == 0:
-        return out
-    lib = _KERNEL.load(_declare)
-    ptrs = [x.data_ptr() for x in args] + [out.data_ptr()]
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ksw_local_launch(*ptrs, N, Q, T, o_del, e_del, o_ins,
-                                   e_ins, a, b, int(bool(want_sub)), stream)
-    with _count_lock:
-        ksw_local.launches += 1
-    if err != 0:
-        raise RuntimeError(f"ksw_local kernel launch failed: CUDA error "
-                           f"{err}")
-    return out
+    return launch_kernel(args, kernel_instance(query.shape[1]), **kw)
 
 
 ksw_local.launches = 0
