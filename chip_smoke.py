@@ -51,16 +51,45 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                kernel and path (K1) or template instance (K2), each with
                that path's own launch count; beside each the generic
                (shared-memory) instance's time on the same inputs.
+  7. CLI SE  — the phase-3 timed reads (2 batches of 4096 x 100 bp) written
+               to FASTQ and aligned by `python -m tpubwa_torch align ...
+               --platform cuda` in a subprocess: the whole file byte-equal
+               to Aligner.sam_header() + the oracle's align_se; the CLI's
+               own "total ... reads/s" line and kernel launch counts;
+  8. CLI PE  — 2 batches of 2048 pairs of 150 bp (inserts 400 +- 50) as
+               r_1.fq / r_2.fq through `align idx r_1.fq r_2.fq`: byte-equal
+               to the header + Oracle.align_pe; K2 launched;
+  9. shards  — an SE run with --shard-dir, then the same command again (it
+               aligns no batch); merge of the shards equals phase 7's file;
+               sort gives coordinate order; index on a FASTA of the first
+               200 kbp equals build_index in this process, array for array;
+ 10. multihost — two processes of `align -p --multihost --batch-size 2048`
+               on one card, joined by a TCP store (MASTER_ADDR, a free port,
+               WORLD_SIZE=2, RANK=0/1), on uneven input (3 batches against
+               1): host 0's shard equals a single-process run's batch over
+               both hosts' round-0 reads (the histogram summed) followed by
+               its two lone batches; host 1's shard the rest of that batch;
+               the inserts are planted so that host 0's first batch aligns
+               differently with its own histogram, else the phase fails;
+ 11. anchor  — one SE batch of 4096 x 100 bp through Aligner(seed_impl=
+               "anchor", device="cuda"), SAM byte-equal to the oracle, K1
+               launched; on its first 256 reads collect_smems_anchor and
+               collect_smems equal to Oracle.smems on every read that did
+               not overflow; the anchor seed stage timed beside the LUT's.
+Phases 7-11 run between phases 5 and 6, each from counts of its own.
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 (python3 chip_smoke.py kernels stops after phase 2: build, sweeps and row
-latency only, for work on the kernels.)
+latency only, for work on the kernels; python3 chip_smoke.py slice runs
+the build and phases 7-11 only.)
 """
 import json
+import os
 import re
+import socket
 import subprocess
 import sys
 import threading
@@ -86,6 +115,7 @@ OPS_PER_CELL = 15       # int32 operations per banded DP cell (see PERF.md)
 # E' = max(E - e_del, H - oe_del, 0) 4; row max with its column 3
 K2_OPS_PER_CELL = 20
 SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, a=1, b=4)
+DEVICE = "cuda"         # the device of the command-line and anchor phases
 
 
 def card_line() -> str:
@@ -576,6 +606,15 @@ def get_index():
     return idx
 
 
+def make_aligner():
+    """The aligner of the full-size phases: the cached 4.6 Mbp index and
+    its LUT cache, on the card."""
+    from tpubwa_torch.opts import MemOptions
+    from tpubwa_torch.pipeline import Aligner
+    return Aligner(get_index(), MemOptions(), device="cuda",
+                   lut_cache=lut_cache())
+
+
 def e2e(card: str):
     """Streamed SE alignment on the card, SAM byte-equal to the oracle.
     Returns (aligner, first recorded K1 call's args, launches, reads/s)."""
@@ -584,14 +623,10 @@ def e2e(card: str):
     from tpubwa_torch.extend import worker
     from tpubwa_torch.io import fastx
     from tpubwa_torch.ops import sw
-    from tpubwa_torch.opts import MemOptions
-    from tpubwa_torch.pipeline import Aligner
 
     t0 = time.time()
-    idx = get_index()
-    aln = Aligner(idx, MemOptions(), device="cuda",
-                  lut_cache=REPO / "build" / "tpubwa_torch" /
-                  f"smoke_lut_{GENOME_LEN}.npz")
+    aln = make_aligner()
+    idx = aln.idx
     fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
     n_reads = BATCH * (TIMED_BATCHES + 1)
     recs = fastx.simulate_reads(fwd, n_reads, read_len=READ_LEN,
@@ -928,6 +963,389 @@ def device_share(aln, batch, id0: int, card: str, paired: bool = False):
                     if len(k1_ev) == len(k1_log) else None)
 
 
+def smoke_dir() -> Path:
+    d = REPO / "build" / "tpubwa_torch" / "smoke_cli"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def lut_cache() -> Path:
+    return REPO / "build" / "tpubwa_torch" / f"smoke_lut_{GENOME_LEN}.npz"
+
+
+def cli_env(**extra) -> dict:
+    """The environment of a command-line subprocess: this checkout on the
+    path, and the LUT cache phase 3 built (so no process rebuilds it, and
+    two processes never write it at once)."""
+    return dict(os.environ, PYTHONPATH=str(REPO),
+                TPUBWA_LUT_CACHE=str(lut_cache()), **extra)
+
+
+def run_cli(args: list, what: str, timeout: int = 600) -> str:
+    """Run `python -m tpubwa_torch args` to its end; returns its stderr,
+    raises when it fails."""
+    r = subprocess.run([sys.executable, "-m", "tpubwa_torch", *args],
+                       cwd=str(REPO), env=cli_env(), capture_output=True,
+                       text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{what}: the command line exited "
+                             f"{r.returncode}:\n{r.stderr[-3000:]}")
+    return r.stderr
+
+
+def cli_line(err: str, key: str) -> str:
+    """The command line's own report line that contains key."""
+    return next(l for l in err.splitlines() if key in l)
+
+
+def cli_launches(err: str) -> tuple:
+    """(K1, K2) launches from the command line's kernel launch line."""
+    m = re.search(r"ksw_extend (\d+), ksw_local (\d+)",
+                  cli_line(err, "kernel launches"))
+    return int(m.group(1)), int(m.group(2))
+
+
+def first_diff(got: str, want: str, what: str):
+    if got != want:
+        d, o = got.split("\n"), want.split("\n")
+        bad = next((i for i, (x, y) in enumerate(zip(d, o)) if x != y),
+                   min(len(d), len(o)))
+        raise AssertionError(
+            f"{what}: differs at line {bad} ({len(d)} against {len(o)} "
+            f"lines):\n{d[bad] if bad < len(d) else '<end>'}\n"
+            f"{o[bad] if bad < len(o) else '<end>'}")
+
+
+def se_reads(idx):
+    """Phase 3's reads, batch by batch (warm-up first)."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    n_reads = BATCH * (TIMED_BATCHES + 1)
+    recs = fastx.simulate_reads(fwd, n_reads, read_len=READ_LEN,
+                                error_rate=0.01, indel_rate=0.001, seed=7)
+    return [recs[i:i + BATCH] for i in range(0, n_reads, BATCH)]
+
+
+def pe_reads(idx):
+    """Phase 5's pairs (interleaved records), batch by batch."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    n_pairs = PE_PAIRS * (PE_TIMED_BATCHES + 1)
+    recs = fastx.simulate_reads(fwd, n_pairs, read_len=PE_READ_LEN,
+                                error_rate=0.01, indel_rate=0.001, seed=11,
+                                paired=True, insert_mean=400, insert_std=50)
+    return [recs[i:i + 2 * PE_PAIRS] for i in range(0, 2 * n_pairs,
+                                                    2 * PE_PAIRS)]
+
+
+def cli_phases(aln, card: str) -> dict:
+    """Phases 7-9: the command line on the card. Returns its numbers."""
+    from tpubwa_torch import cli
+    from tpubwa_torch.index.builder import build_index
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.utils import dna
+    import numpy as np
+    d = smoke_dir()
+    idx_path = REPO / "build" / "tpubwa_torch" / \
+        f"smoke_index_{GENOME_LEN}.npz"
+    if not idx_path.exists():
+        aln.idx.save(idx_path)
+    hdr = aln.sam_header()
+    res = {}
+
+    # ---- 7. SE: the phase-3 timed batches from one FASTQ file
+    t0 = time.time()
+    fastx.write_fastq(d / "r.fq", [r for b in se_reads(aln.idx)[1:]
+                                   for r in b])
+    recs = list(fastx.iter_fastq(d / "r.fq"))     # with their qualities
+    want = hdr + "".join(aln.oracle.align_se(
+        fastx.batch_reads(recs[i:i + BATCH], max_len=READ_LEN), aln.opt,
+        id0=i) for i in range(0, len(recs), BATCH))
+    prep = time.time() - t0
+    t0 = time.time()
+    err = run_cli(["align", str(idx_path), str(d / "r.fq"), "-o",
+                   str(d / "out.sam"), "--platform", DEVICE,
+                   "--batch-size", str(BATCH)], "CLI SE")
+    wall = time.time() - t0
+    first_diff((d / "out.sam").read_text(), want, "CLI SE SAM against the "
+               "header + the oracle")
+    k1, k2 = cli_launches(err)
+    res["se"] = dict(line=cli_line(err, "total"), wall=wall, k1=k1, k2=k2)
+    print(f"CLI SE: {len(recs)} reads, whole file byte-equal to the header "
+          f"+ the oracle; the CLI says: {res['se']['line']}; process wall "
+          f"{wall:.1f} s (start-up included; reads + oracle prepared in "
+          f"{prep:.1f} s); K1 launches {k1}, K2 launches {k2} [{card}]",
+          flush=True)
+    if k1 <= 0:
+        raise AssertionError("the CLI SE path launched K1 no time")
+
+    # ---- 8. PE from two mate files
+    t0 = time.time()
+    pe = [r for b in pe_reads(aln.idx)[1:] for r in b]
+    fastx.write_fastq(d / "r_1.fq", pe[0::2])
+    fastx.write_fastq(d / "r_2.fq", pe[1::2])
+    pe = [r for m in zip(fastx.iter_fastq(d / "r_1.fq"),
+                         fastx.iter_fastq(d / "r_2.fq")) for r in m]
+    want = hdr + "".join(aln.oracle.align_pe(
+        fastx.batch_reads(pe[i:i + 2 * PE_PAIRS], max_len=PE_READ_LEN),
+        aln.opt, id0=i // 2)[0] for i in range(0, len(pe), 2 * PE_PAIRS))
+    prep = time.time() - t0
+    t0 = time.time()
+    err = run_cli(["align", str(idx_path), str(d / "r_1.fq"),
+                   str(d / "r_2.fq"), "-o", str(d / "pe.sam"),
+                   "--platform", DEVICE, "--batch-size", str(2 * PE_PAIRS)],
+                  "CLI PE")
+    wall = time.time() - t0
+    first_diff((d / "pe.sam").read_text(), want, "CLI PE SAM against the "
+               "header + Oracle.align_pe")
+    k1, k2 = cli_launches(err)
+    res["pe"] = dict(line=cli_line(err, "total"), wall=wall, k1=k1, k2=k2)
+    print(f"CLI PE: {len(pe) // 2} pairs from two mate files, whole file "
+          f"byte-equal to the header + Oracle.align_pe; the CLI says: "
+          f"{res['pe']['line']}; process wall {wall:.1f} s (oracle "
+          f"{prep:.1f} s); K1 launches {k1}, K2 launches {k2} [{card}]",
+          flush=True)
+    if k1 <= 0 or k2 < 2 * PE_TIMED_BATCHES:
+        raise AssertionError(f"the CLI PE path launched K1 {k1} and K2 "
+                             f"{k2} times: expected K2 twice a batch")
+
+    # ---- 9. --shard-dir resume, merge, sort, index
+    sd = d / "shards"
+    if sd.exists():
+        for f in sd.iterdir():
+            f.unlink()
+    cmd = ["align", str(idx_path), str(d / "r.fq"), "--platform", DEVICE,
+           "--batch-size", str(BATCH), "--shard-dir", str(sd)]
+    err1 = run_cli(cmd, "CLI shard run")
+    err2 = run_cli(cmd, "CLI shard rerun")
+    shards = sorted(sd.glob("shard_*.sam"))
+    n_batches = sum(1 for l in err1.splitlines() if "] batch " in l)
+    if len(shards) != TIMED_BATCHES or n_batches != TIMED_BATCHES:
+        raise AssertionError(f"shard run: {len(shards)} shards, "
+                             f"{n_batches} batches")
+    if "] batch " in err2 or "total 0 records" not in err2:
+        raise AssertionError("the rerun aligned a batch:\n" + err2[-2000:])
+    cli.main(["merge", str(sd / "header.sam"), *map(str, shards), "-o",
+              str(d / "merged.sam")])
+    first_diff((d / "merged.sam").read_text(),
+               (d / "out.sam").read_text(), "merge of the shards")
+    cli.main(["sort", str(d / "out.sam"), "-o", str(d / "sorted.sam")])
+    srt = (d / "sorted.sam").read_text().splitlines()
+    body = [l for l in srt if not l.startswith("@")]
+    keys = [(l.split("\t")[2] == "*", int(l.split("\t")[3])) for l in body]
+    if srt[0] != "@HD\tVN:1.6\tSO:coordinate" or keys != sorted(keys) or \
+            sorted(body) != sorted(l for l in (d / "out.sam").read_text()
+                                   .splitlines() if not l.startswith("@")):
+        raise AssertionError("sort did not give coordinate order")
+    name = aln.idx.anns[0].name
+    seq = dna.decode(aln.idx.get_seq(0, 200_000).astype(np.uint8))
+    (d / "g200k.fa").write_text(f">{name}\n{seq}\n")
+    t0 = time.time()
+    cli.main(["index", str(d / "g200k.fa"), "-o", str(d / "g200k.npz")])
+    t_index = time.time() - t0
+    build_index([(name, seq)]).save(d / "g200k_here.npz")
+    a, b = np.load(d / "g200k.npz"), np.load(d / "g200k_here.npz")
+    if sorted(a.files) != sorted(b.files) or not all(
+            np.array_equal(a[k], b[k]) for k in a.files):
+        raise AssertionError("index of the 200 kbp FASTA differs from "
+                             "build_index")
+    print(f"CLI shards: {len(shards)} shards; the rerun aligned no batch; "
+          f"merge equals the single file; sort in coordinate order; index "
+          f"of 200 kbp ({t_index:.1f} s) equal to build_index, "
+          f"{len(a.files)} arrays [{card}]", flush=True)
+    return res
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_phase(aln, card: str) -> dict:
+    """Phase 10: two processes of the command line on one card, uneven PE
+    input. Files sort as u0, u1, u2: rank 0 aligns u0 (1024 pairs) and u2
+    (2048 pairs) in 3 batches of 2048 reads, rank 1 u1 (1024 pairs) in 1.
+    Round 0 of the histogram sum holds u0 and u1, so both must equal this
+    process's align_pe of u0 + u1 as one batch; rounds 1-2 hold u2's
+    batches alone (rank 1 adds zeros). u1's inserts are 600 +- 50, and
+    one pair in 8 of u0 has an insert of 650 +- 20: outliers to u0's own
+    histogram (not proper pairs), inside the summed one (proper pairs), so
+    u0's SAM shows which histogram it was aligned with."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    d = smoke_dir()
+    idx_path = REPO / "build" / "tpubwa_torch" / \
+        f"smoke_index_{GENOME_LEN}.npz"
+    recs = [r for b in pe_reads(aln.idx) for r in b]
+    half = PE_PAIRS            # reads in 1024 pairs
+    fwd = aln.idx.get_seq(0, aln.idx.l_pac).astype(np.uint8)
+
+    def pairs(n, ins, sd, seed, tag):
+        return [fastx.FastxRecord(f"{tag}{r.name}", r.seq)
+                for r in fastx.simulate_reads(
+                    fwd, n, read_len=PE_READ_LEN, error_rate=0.01,
+                    indel_rate=0.001, seed=seed, paired=True,
+                    insert_mean=ins, insert_std=sd)]
+    n_long = half // 16
+    parts = {"u0": recs[:half - 2 * n_long] + pairs(n_long, 650, 20, 13,
+                                                    "x"),
+             "u1": pairs(half // 2, 600, 50, 12, "w"),
+             "u2": recs[2 * half:4 * half]}
+    for k, v in parts.items():
+        fastx.write_fastq(d / f"{k}.fq", v)
+        parts[k] = list(fastx.iter_fastq(d / f"{k}.fq"))
+    for f in d.glob("mh.host*.sam"):
+        f.unlink()
+    port = str(free_port())
+    args = ["align", "-p", "--multihost", "--batch-size", str(half),
+            "--platform", DEVICE, str(idx_path),
+            *(str(d / f"{k}.fq") for k in ("u0", "u1", "u2")),
+            "-o", str(d / "mh.sam")]
+    procs = []
+    t0 = time.time()
+    try:
+        for rank, id0 in ((0, 0), (1, half)):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tpubwa_torch", *args, "--id0",
+                 str(id0)], cwd=str(REPO),
+                env=cli_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                            WORLD_SIZE="2", RANK=str(rank)),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.time() - t0
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost rank {rank} exited "
+                                 f"{p.returncode}:\n{err[-3000:]}")
+    plans = [cli_line(e, "PE plan") for e in errs]
+    launches = [cli_launches(e) for e in errs]
+    # the single-process run: this process, the same batches and ids
+    b01 = fastx.batch_reads(parts["u0"] + parts["u1"], max_len=PE_READ_LEN)
+    s1 = aln.align_pe(b01, id0=0)
+    first_diff(s1, aln.oracle.align_pe(b01, aln.opt, id0=0)[0],
+               "single-process batch u0+u1 against the oracle")
+    u2 = parts["u2"]
+    s2 = "".join(aln.align_pe(fastx.batch_reads(
+        u2[i:i + half], max_len=PE_READ_LEN), id0=(half + i) // 2)
+        for i in range(0, len(u2), half))
+    lines = s1.splitlines(True)
+    cut = next(i for i, l in enumerate(lines)
+               if l.split("\t")[0] == parts["u1"][0].name)
+
+    def body(path):
+        return "".join(l for l in path.read_text().splitlines(True)
+                       if not l.startswith("@"))
+    first_diff(body(d / "mh.host0000.sam"), "".join(lines[:cut]) + s2,
+               "multihost rank 0's shard against the single-process run")
+    first_diff(body(d / "mh.host0001.sam"), "".join(lines[cut:]),
+               "multihost rank 1's shard against the single-process run")
+    # what the sum changed: u0 aligned with its own histogram alone
+    alone = aln.align_pe(fastx.batch_reads(parts["u0"],
+                                           max_len=PE_READ_LEN), id0=0)
+    n_diff = sum(x != y for x, y in zip(alone.splitlines(True),
+                                        lines[:cut]))
+    print(f"multihost: 2 processes on one card, shards byte-equal to the "
+          f"single-process run (rank 0: {plans[0].split('] ')[1]}; rank 1: "
+          f"{plans[1].split('] ')[1]}); {n_diff} of {cut} lines of rank "
+          f"0's first batch differ from aligning it with its own histogram "
+          f"alone; wall {wall:.1f} s for both processes; launches K1/K2 "
+          f"rank 0 {launches[0]}, rank 1 {launches[1]} [{card}]", flush=True)
+    if min(l[0] for l in launches) <= 0:
+        raise AssertionError("a multihost process launched K1 no time")
+    if n_diff == 0:
+        raise AssertionError("rank 0's first batch aligns the same with its "
+                             "own histogram: the check cannot tell whether "
+                             "the histograms were summed")
+    return dict(wall=wall, launches=launches, n_diff=n_diff)
+
+
+def anchor_phase(aln, card: str) -> dict:
+    """Phase 11: the anchor seeding path on the card."""
+    import torch
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.ops import sw
+    from tpubwa_torch.pipeline import Aligner
+    from tpubwa_torch.seed.anchor import collect_smems_anchor
+    from tpubwa_torch.seed.device import SeedConfig, collect_smems
+    from tpubwa_torch.seed.lut import collect_smems_lut
+    batch = fastx.batch_reads(se_reads(aln.idx)[1], max_len=READ_LEN)
+    t0 = time.time()
+    anc = Aligner(aln.idx, aln.opt, seed_impl="anchor", device=DEVICE)
+    t_init = time.time() - t0
+    sw.ksw_extend.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sam = anc.align_se(batch, id0=BATCH)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    k1 = sw.ksw_extend.launches
+    first_diff(sam, aln.oracle.align_se(batch, aln.opt, id0=BATCH),
+               "anchor-seeded SE batch against the oracle")
+    if k1 <= 0:
+        raise AssertionError("the anchor path launched K1 no time")
+    seqs = torch.as_tensor(batch.seqs).to(DEVICE).to(torch.int32)
+    lens = torch.as_tensor(batch.lens).to(DEVICE)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+    # both seed stages are warm: align_se above ran the anchor's, and the
+    # LUT's gets one call first
+    out_a, t_anchor = timed(lambda: collect_smems_anchor(
+        anc.didx, seqs, lens, anc.scfg))
+    lut_seed = lambda: collect_smems_lut(aln.didx, aln.lut, seqs,  # noqa
+                                         lens, aln.scfg)
+    lut_seed()
+    _, t_lut = timed(lut_seed)
+    n = 256
+    o = aln.opt
+    outs = {"anchor": collect_smems_anchor(anc.didx, seqs[:n], lens[:n],
+                                           anc.scfg),
+            "per-end walk": collect_smems(anc.didx, seqs[:n], lens[:n],
+                                          SeedConfig(
+                                              min_seed_len=o.min_seed_len,
+                                              split_len=o.split_len,
+                                              split_width=o.split_width))}
+    host = [aln.oracle.smems(batch.seqs[b][: batch.lens[b]], o)
+            for b in range(n)]
+    checked = {}
+    for name, out in outs.items():
+        h = {k: v.cpu().numpy() for k, v in out.items()}
+        checked[name] = 0
+        for b in range(n):
+            if h["overflow"][b]:
+                continue
+            dev = [(int(h["k"][b, i]), int(h["s"][b, i]), int(h["qb"][b, i]),
+                    int(h["qe"][b, i])) for i in range(h["n"][b])]
+            if dev != [(int(r[0]), int(r[2]), int(r[3]), int(r[4]))
+                       for r in host[b]]:
+                raise AssertionError(f"{name} seeding differs from "
+                                     f"Oracle.smems on read {b}")
+            checked[name] += 1
+    print(f"anchor: {batch.n} reads through Aligner(seed_impl='anchor') "
+          f"SAM byte-equal to the oracle in {dt:.2f} s (set-up {t_init:.1f}"
+          f" s); fallback {anc.stats['fallback_reads']}, tier1 overflow "
+          f"{anc.stats.get('tier1_ovf', 0)}; K1 launches {k1}; seed stage "
+          f"of the batch: anchor {t_anchor * 1e3:.1f} ms "
+          f"({int(out_a['it'])} steps, {t_anchor / int(out_a['it']) * 1e3:.2f}"
+          f" ms a step, {int(out_a['overflow'].sum())} reads "
+          f"overflow) against LUT {t_lut * 1e3:.1f} ms; on {n} reads equal "
+          f"to Oracle.smems: anchor {checked['anchor']}, per-end walk "
+          f"{checked['per-end walk']} reads (the rest overflowed) [{card}]",
+          flush=True)
+    return dict(dt=dt, k1=k1, t_anchor=t_anchor, t_lut=t_lut,
+                checked=checked)
+
+
 def main() -> int:
     try:
         import torch
@@ -945,11 +1363,20 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     build()
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if sys.argv[1:] == ["slice"]:
+        aln = make_aligner()
+        cli_phases(aln, card)
+        multihost_phase(aln, card)
+        anchor_phase(aln, card)
+        print(f"{card}")
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phases 7-11 only"}))
+        return 0
     worst = parity(card)
     worst2 = parity_k2(card)
     row_latency(card)
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-              "count": torch.cuda.device_count()}
     if sys.argv[1:] == ["kernels"]:
         print(f"{card}")
         print(json.dumps({"ok": True, "device": device,
@@ -957,6 +1384,12 @@ def main() -> int:
         return 0
     aln, k1_args, launches, rps = e2e(card)
     k1_pe_args, k2_fwd, k2_rev, pe_k1, pe_k2, pe_rps = pe_e2e(aln, card)
+    t_new = time.time()
+    cli_res = cli_phases(aln, card)
+    multihost_phase(aln, card)
+    anc = anchor_phase(aln, card)
+    print(f"phases 7-11 (CLI, shards, multihost, anchor) took "
+          f"{time.time() - t_new:.1f} s", flush=True)
     r1 = {}
     for path, args, n_l in (("SE", k1_args, launches),
                             ("PE", k1_pe_args, pe_k1)):
@@ -1011,7 +1444,11 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
-    print(f"e2e reads/s: SE {rps:.1f}, PE {pe_rps:.1f}")
+    print(f"e2e reads/s: SE {rps:.1f}, PE {pe_rps:.1f}; CLI: "
+          f"{cli_res['se']['line'].split('] ')[1]} (SE), "
+          f"{cli_res['pe']['line'].split('] ')[1]} (PE); anchor seed stage "
+          f"{anc['t_anchor'] * 1e3:.1f} ms against LUT "
+          f"{anc['t_lut'] * 1e3:.1f} ms")
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

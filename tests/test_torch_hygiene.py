@@ -19,7 +19,10 @@ def test_import_pulls_in_no_jax_and_no_tpubwa():
             "import tpubwa_torch, tpubwa_torch.pipeline, "
             "tpubwa_torch.ops.sw, tpubwa_torch.ops.sw_local, "
             "tpubwa_torch.ops.cubuild, tpubwa_torch.pair.rescue, "
-            "tpubwa_torch.dist.mesh\n"
+            "tpubwa_torch.dist.mesh, tpubwa_torch.cli, "
+            "tpubwa_torch.io.sam, tpubwa_torch.dist.multihost, "
+            "tpubwa_torch.seed.anchor, tpubwa_torch.seed.device, "
+            "tpubwa_torch.index.fmquery, tpubwa_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpubwa.')) or m == 'tpubwa')\n"
             "print(bad)\n")
@@ -56,8 +59,32 @@ def test_aligner_without_device_needs_a_card():
     assert Aligner(idx, device="cpu").device.type == "cpu"
 
 
-def test_seed_impl_anchor_not_ported():
+def test_seed_impl_anchor_configs_equal_reference():
+    """configs_from_opts(seed_impl="anchor") gives the reference's
+    AnchorSeedConfig (and chaining / extension configs) field for field,
+    at the tier-1 caps and at both big-caps tiers' caps."""
+    import dataclasses
+
+    from tpubwa.opts import MemOptions as JMemOptions
+    from tpubwa.pipeline import configs_from_opts as jconfigs
     from tpubwa_torch.opts import MemOptions
     from tpubwa_torch.pipeline import configs_from_opts
-    with pytest.raises(NotImplementedError, match="anchor"):
-        configs_from_opts(MemOptions(), seed_impl="anchor")
+    from tpubwa_torch.seed.anchor import AnchorSeedConfig
+    for caps in ({}, dict(max_smems=63, max_seeds=640, max_chains=64,
+                          max_regs=63, sa_dense=640),
+                 dict(max_smems=48, max_seeds=192, max_chains=48,
+                      max_regs=48)):
+        got = configs_from_opts(MemOptions(min_seed_len=17),
+                                seed_impl="anchor", text_len=60000, **caps)
+        want = jconfigs(JMemOptions(min_seed_len=17), seed_impl="anchor",
+                        text_len=60000, **caps)
+        assert isinstance(got[0], AnchorSeedConfig)
+        assert dataclasses.asdict(got[0]) == dataclasses.asdict(want[0])
+        assert dataclasses.asdict(got[1]) == dataclasses.asdict(want[1])
+        # the port's ExtendConfig leaves out use_pallas and two fields it
+        # holds fixed (max_band_try, cand_rows); the fields it has agree
+        ext = dataclasses.asdict(got[2])
+        jext = dataclasses.asdict(want[2])
+        assert ext == {k: jext[k] for k in ext}
+    with pytest.raises(ValueError, match="seed_impl"):
+        configs_from_opts(MemOptions(), seed_impl="fm")

@@ -86,8 +86,11 @@ def seeds_from_smems(didx: DeviceIndex, smems: dict, cfg: ChainConfig):
     qb, qe, k, s, n = (smems[x] for x in ("qb", "qe", "k", "s", "n"))
     B, M = qb.shape
     # pos >= 0 marks SMEMs whose (unique) text position is pre-resolved by
-    # the seeding stage (seed.lut s==1 shortcut): no SA walk needed
-    pos = smems["pos"]
+    # the seeding stage (seed.lut s==1 shortcut): no SA walk needed; the
+    # other seeding paths resolve every SMEM by the SA walk
+    pos = smems.get("pos")
+    if pos is None:
+        pos = torch.full_like(k, -1)
     slot = _iota(M, qb)[None, :]
     vs = slot < n[:, None]
     slen = qe - qb

@@ -1,8 +1,8 @@
 """Reductions over the reads of a batch.
 
 One device holds the whole batch here, so the insert-size histogram is a
-plain scatter-add on it; the cross-host leg of the reference's reduction
-comes with the multi-host slice.
+plain scatter-add on it; the cross-host leg of the reduction is
+``dist.multihost.hist_allreduce``.
 """
 from __future__ import annotations
 

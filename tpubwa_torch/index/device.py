@@ -82,6 +82,24 @@ class DeviceIndex:
         )
 
 
+def sel4(arr: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """arr[..., c] for c in {0..3} as a 4-way select (0 for other c).
+    arr: (..., 4); c: (...). Keeps arr's dtype."""
+    return (torch.where(c == 0, arr[..., 0], 0)
+            + torch.where(c == 1, arr[..., 1], 0)
+            + torch.where(c == 2, arr[..., 2], 0)
+            + torch.where(c == 3, arr[..., 3], 0))
+
+
+def sel_vec(vec: torch.Tensor, c: torch.Tensor, n: int) -> torch.Tensor:
+    """vec[c] for a tiny vec (e.g. L2[5]) and c in [0, n) as an n-way
+    select (0 for other c). Keeps vec's dtype (L2 is pos_dtype)."""
+    out = torch.zeros(c.shape, dtype=vec.dtype, device=vec.device)
+    for i in range(n):
+        out = torch.where(c == i, vec[i], out)
+    return out
+
+
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
     """SWAR popcount of 32-bit words held in int64 lanes -> int32."""
     x = x - ((x >> 1) & 0x55555555)

@@ -1,13 +1,17 @@
-"""Read batches and a deterministic synthetic read simulator.
+"""FASTA / FASTQ readers, read batches and a deterministic synthetic read
+simulator.
 
 Replacement for the reference's HDFS/Avro input layer
-(``FASTQLocalFileLoader`` — SURVEY.md §2.1): reads become flat numpy
-batches (padded, bucketed by length) that are copied to the device as one
-tensor per batch.
+(``FASTQLocalFileLoader`` — SURVEY.md §2.1): reads come from local FASTQ
+files (plain or ``.gz``) and become flat numpy batches (padded, bucketed by
+length) that are copied to the device as one tensor per batch.
 """
 from __future__ import annotations
 
 import dataclasses
+import gzip
+from pathlib import Path
+from typing import Iterator
 
 import numpy as np
 
@@ -19,6 +23,61 @@ class FastxRecord:
     name: str
     seq: str
     qual: str | None = None
+    comment: str | None = None
+
+
+def _open(path: str | Path):
+    path = str(path)
+    if path.endswith(".gz"):
+        return gzip.open(path, "rt")
+    return open(path, "rt")
+
+
+def read_fasta(path: str | Path) -> list[tuple[str, str]]:
+    """Returns [(name, sequence)] for the whole file: the name is the first
+    word of the header line; blank lines are skipped."""
+    out: list[tuple[str, str]] = []
+    name, chunks = None, []
+    with _open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith(">"):
+                if name is not None:
+                    out.append((name, "".join(chunks)))
+                name = line[1:].split()[0]
+                chunks = []
+            else:
+                chunks.append(line)
+        if name is not None:
+            out.append((name, "".join(chunks)))
+    return out
+
+
+def iter_fastq(path: str | Path) -> Iterator[FastxRecord]:
+    """Four-line FASTQ records; the name is the header's first word, the
+    rest of the header is the comment."""
+    with _open(path) as f:
+        while True:
+            hdr = f.readline()
+            if not hdr:
+                return
+            hdr = hdr.rstrip("\n")
+            seq = f.readline().rstrip("\n")
+            f.readline()  # '+'
+            qual = f.readline().rstrip("\n")
+            fields = hdr[1:].split(None, 1)
+            yield FastxRecord(name=fields[0], seq=seq, qual=qual,
+                              comment=fields[1] if len(fields) > 1 else None)
+
+
+def write_fastq(path: str | Path, records: list[FastxRecord]) -> None:
+    """Writes records as FASTQ; a record without qualities gets 'I's."""
+    with open(path, "w") as f:
+        for r in records:
+            q = r.qual if r.qual is not None else "I" * len(r.seq)
+            f.write(f"@{r.name}\n{r.seq}\n+\n{q}\n")
 
 
 @dataclasses.dataclass

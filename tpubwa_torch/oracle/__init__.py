@@ -114,6 +114,26 @@ def _declare(lib: C.CDLL) -> None:
     ]
     lib.tb_sais.restype = C.c_int
     lib.tb_sais.argtypes = [u8p, C.c_int64, i64p]
+    # ---- scalar stages, for differential tests of the device stages
+    lib.tb_ksw_extend.argtypes = [
+        C.c_int, u8p, C.c_int, u8p, C.c_int, C.c_int, C.c_int, C.c_int,
+        C.c_int, C.c_int, C.c_int, C.c_int, i8p, i32p,
+    ]
+    lib.tb_ksw_global.restype = C.c_int
+    lib.tb_ksw_global.argtypes = [
+        C.c_int, u8p, C.c_int, u8p, C.c_int, C.c_int, C.c_int, C.c_int,
+        C.c_int, i8p, u32p, C.c_int, C.POINTER(C.c_int),
+    ]
+    lib.tb_smems.restype = C.c_int
+    lib.tb_smems.argtypes = [C.c_void_p, C.POINTER(CMemOpt), u8p, C.c_int,
+                             C.POINTER(C.POINTER(C.c_int64))]
+    lib.tb_chains.restype = C.c_int
+    lib.tb_chains.argtypes = [C.c_void_p, C.POINTER(CMemOpt), u8p, C.c_int,
+                              C.c_int, C.POINTER(C.POINTER(C.c_int64))]
+    lib.tb_regs.restype = C.c_int
+    lib.tb_regs.argtypes = [C.c_void_p, C.POINTER(CMemOpt), u8p, C.c_int,
+                            C.c_int64, C.c_int,
+                            C.POINTER(C.POINTER(C.c_int64))]
     # ---- paired-end entry points
     lib.tb_ksw_align.argtypes = [
         C.c_int, u8p, C.c_int, u8p, C.c_int, C.c_int, C.c_int, C.c_int,
@@ -151,6 +171,37 @@ def _declare(lib: C.CDLL) -> None:
     lib.tb_rescue_miss_count.argtypes = []
     lib.tb_rescue_miss_reset.restype = None
     lib.tb_rescue_miss_reset.argtypes = []
+
+
+def ksw_extend(query, target, opt: MemOptions, w=None, end_bonus=0, h0=0,
+               zdrop=None):
+    """Scalar ksw_extend2. Returns (score, qle, tle, gtle, gscore, max_off)."""
+    lib = get_lib()
+    query = np.ascontiguousarray(query, dtype=np.uint8)
+    target = np.ascontiguousarray(target, dtype=np.uint8)
+    out = np.zeros(6, dtype=np.int32)
+    mat = np.ascontiguousarray(opt.scmat.reshape(-1))
+    lib.tb_ksw_extend(len(query), query, len(target), target, opt.o_del,
+                      opt.e_del, opt.o_ins, opt.e_ins,
+                      opt.w if w is None else w, end_bonus,
+                      opt.zdrop if zdrop is None else zdrop, h0, mat, out)
+    return tuple(int(x) for x in out)
+
+
+def ksw_global(query, target, opt: MemOptions, w=None):
+    """Scalar ksw_global2. Returns (score, cigar list of (len, op))."""
+    lib = get_lib()
+    query = np.ascontiguousarray(query, dtype=np.uint8)
+    target = np.ascontiguousarray(target, dtype=np.uint8)
+    cap = len(query) + len(target) + 2
+    cig = np.zeros(cap, dtype=np.uint32)
+    n = C.c_int(0)
+    mat = np.ascontiguousarray(opt.scmat.reshape(-1))
+    score = lib.tb_ksw_global(len(query), query, len(target), target,
+                              opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+                              opt.w if w is None else w, mat, cig, cap,
+                              C.byref(n))
+    return score, [(int(c) >> 4, int(c) & 0xF) for c in cig[: n.value]]
 
 
 def ksw_align_local(query, target, opt: MemOptions, minsc=0):
@@ -208,6 +259,30 @@ class Oracle:
         if getattr(self, "_h", None):
             self._lib.tb_idx_free(self._h)
             self._h = None
+
+    def _rows(self, fn, seq, opt: MemOptions, width: int, *extra):
+        """Call a native stage that returns n rows of `width` int64s."""
+        seq = np.ascontiguousarray(seq, dtype=np.uint8)
+        rows = C.POINTER(C.c_int64)()
+        n = fn(self._h, C.byref(to_copt(opt)), seq, len(seq), *extra,
+               C.byref(rows))
+        return np.ctypeslib.as_array(rows, shape=(n, width)).copy() if n \
+            else np.empty((0, width), dtype=np.int64)
+
+    def smems(self, seq, opt: MemOptions):
+        """[(k, l, s, qbeg, qend)] after both seeding rounds."""
+        return self._rows(self._lib.tb_smems, seq, opt, 5)
+
+    def chains(self, seq, opt: MemOptions, filtered=True):
+        """Seed rows (rbeg, qbeg, len, chain_id) after chaining (+filter)."""
+        return self._rows(self._lib.tb_chains, seq, opt, 4,
+                          1 if filtered else 0)
+
+    def regs(self, seq, opt: MemOptions, read_id=0, stage=1):
+        """AlnReg rows. stage 0: pre-dedup (rb,re,qb,qe,seedcov,score,
+        truesc,seedlen0,csub,sub_n,w,sec); stage 1: post-dedup; stage 2:
+        post-primary-marking (rid/sub in cols 4/7)."""
+        return self._rows(self._lib.tb_regs, seq, opt, 12, read_id, stage)
 
     def regs_pre(self, seq, opt: MemOptions):
         """Pre-dedup regions in the device/finish 10-field layout + l_rep."""

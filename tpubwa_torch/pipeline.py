@@ -35,6 +35,7 @@ import torch
 
 from .chain.device import ChainConfig, chain_filter, chain_seeds, \
     seeds_from_smems
+from .dist import multihost
 from .dist.mesh import pe_hist_psum
 from .extend.worker import ExtendConfig, extend_chains
 from .index.builder import FMIndex
@@ -43,6 +44,7 @@ from .io.fastx import ReadBatch
 from .opts import MemOptions
 from .oracle import Oracle, sam_args, to_copt
 from .pair.rescue import dispatch_rescue_tasks
+from .seed.anchor import AnchorSeedConfig, collect_smems_anchor
 from .seed.lut import KmerLUT, LutSeedConfig, collect_smems_lut
 
 REG_FIELDS = ("rb", "re", "qb", "qe", "score", "truesc", "w", "seedcov",
@@ -54,29 +56,35 @@ def configs_from_opts(opt: MemOptions, max_smems=32, max_seeds=128,
                       text_len: int | None = None,
                       seed_kw: dict | None = None,
                       sa_dense: int | None = None):
-    if seed_impl != "lut":
-        raise NotImplementedError(
-            f"seed_impl={seed_impl!r}: only the k-mer jump-table seeding "
-            "('lut') is ported; the anchor seeding oracle comes with the "
-            "differential-oracle slice (ROADMAP.md, Queue 1)")
-    # dense-walk budgets scale with the genome: the k-mer jump table is
-    # capped at k0 <= 12, so on a large text most length-k0 intervals are
-    # still multi-occurrence and the walk must (a) run more full-width
-    # lockstep steps before compacting and (b) leave room for the
-    # repeat-family lanes that survive indefinitely
+    """The seeding, chaining and extension configs of one set of caps.
+    seed_impl "lut" seeds through the k-mer jump table (production),
+    "anchor" through bwa's anchor state machine (``seed.anchor``)."""
     if text_len is None:
         text_len = 1 << 23
-    lg4 = math.ceil(math.log(max(text_len, 4)) / math.log(4.0))
-    k0 = max(1, min(12, opt.min_seed_len, lg4 + 1))
-    fm_full = max(3, lg4 - k0 + 2)
-    fm_dense = 16 if text_len < 1 << 30 else 8
-    offdiag_dense = 8 if text_len < 1 << 26 else 4
-    kw = dict(max_smems=max_smems, min_seed_len=opt.min_seed_len,
-              split_len=opt.split_len, split_width=opt.split_width,
-              fm_full=fm_full, fm_dense=fm_dense,
-              offdiag_dense=offdiag_dense)
-    kw.update(seed_kw or {})
-    scfg = LutSeedConfig(**kw)
+    if seed_impl == "lut":
+        # dense-walk budgets scale with the genome: the k-mer jump table
+        # is capped at k0 <= 12, so on a large text most length-k0
+        # intervals are still multi-occurrence and the walk must (a) run
+        # more full-width lockstep steps before compacting and (b) leave
+        # room for the repeat-family lanes that survive indefinitely
+        lg4 = math.ceil(math.log(max(text_len, 4)) / math.log(4.0))
+        k0 = max(1, min(12, opt.min_seed_len, lg4 + 1))
+        fm_full = max(3, lg4 - k0 + 2)
+        fm_dense = 16 if text_len < 1 << 30 else 8
+        offdiag_dense = 8 if text_len < 1 << 26 else 4
+        kw = dict(max_smems=max_smems, min_seed_len=opt.min_seed_len,
+                  split_len=opt.split_len, split_width=opt.split_width,
+                  fm_full=fm_full, fm_dense=fm_dense,
+                  offdiag_dense=offdiag_dense)
+        kw.update(seed_kw or {})
+        scfg = LutSeedConfig(**kw)
+    elif seed_impl == "anchor":
+        scfg = AnchorSeedConfig(max_smems=max_smems,
+                                min_seed_len=opt.min_seed_len,
+                                split_len=opt.split_len,
+                                split_width=opt.split_width)
+    else:
+        raise ValueError(f"seed_impl={seed_impl!r}: 'lut' or 'anchor'")
     big = text_len >= 1 << 30
     if sa_dense is None:
         # the dense SA-walk budget must hold the batch's TOTAL seed count:
@@ -101,13 +109,12 @@ def configs_from_opts(opt: MemOptions, max_smems=32, max_seeds=128,
 
 
 def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "Aligner: no CUDA device is available; pass device='cpu' "
-                "to run the plain PyTorch path on the host")
-        device = "cuda"
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "Aligner: no CUDA device is available; pass device='cpu' "
+            "to run the plain PyTorch path on the host")
+    return device
 
 
 class Aligner:
@@ -126,8 +133,9 @@ class Aligner:
             opt, seed_impl=seed_impl, text_len=2 * int(idx.l_pac), **caps)
         self.didx = DeviceIndex.from_host(idx, self.device)
         self.oracle = Oracle(idx)
-        self.lut = KmerLUT.build(idx, min_seed_len=opt.min_seed_len,
-                                 cache=lut_cache, device=self.device)
+        self.lut = (KmerLUT.build(idx, min_seed_len=opt.min_seed_len,
+                                  cache=lut_cache, device=self.device)
+                    if seed_impl == "lut" else None)
         self._packed = {}        # length bucket (or tier) -> packed fn
         self._oracle_pool = [self.oracle]   # per-finish-thread handles
         # running workload-honesty counters (reset freely by callers):
@@ -198,19 +206,41 @@ class Aligner:
             raise ValueError("max_regs must fit the 10-bit count field")
         cap_factor = cap_factor if cap_factor is not None else \
             self.CAP_FACTOR
-        didx, lut = self.didx, self.lut
 
         def packed(seqs, lens):
             seqs = seqs.to(torch.int32)      # uint8 over the wire
             lens = lens.to(torch.int32)
-            smems = collect_smems_lut(didx, lut, seqs, lens, scfg)
-            seeds = seeds_from_smems(didx, smems, ccfg)
-            ch = chain_seeds(didx, seeds, ccfg)
-            flt = chain_filter(ch, ccfg)
-            st = extend_chains(didx, seqs, lens, seeds, ch, ecfg, flt)
-            return _pack(st, seeds["l_rep"], R, cap_factor * seqs.shape[0])
+            st = self._device_inner(self.didx, seqs, lens, self.lut, scfg,
+                                    ccfg, ecfg)
+            return _pack(st, st["l_rep"], R, cap_factor * seqs.shape[0])
 
         return packed
+
+    def worker1_device(self, seqs: torch.Tensor, lens: torch.Tensor):
+        """Device half with the tier-1 configs: returns the region-state
+        dict from extend_chains, with l_rep."""
+        return self._device_inner(self.didx, seqs, lens, self.lut, self.scfg,
+                                  self.ccfg, self.ecfg)
+
+    def _collect_smems(self, didx, seqs, lens, lut=None, scfg=None):
+        scfg = scfg or self.scfg
+        if self.seed_impl == "lut":
+            return collect_smems_lut(didx, lut if lut is not None
+                                     else self.lut, seqs, lens, scfg)
+        return collect_smems_anchor(didx, seqs, lens, scfg)
+
+    def _device_inner(self, didx, seqs, lens, lut, scfg, ccfg, ecfg):
+        smems = self._collect_smems(didx, seqs, lens, lut, scfg)
+        seeds = seeds_from_smems(didx, smems, ccfg)
+        ch = chain_seeds(didx, seeds, ccfg)
+        flt = chain_filter(ch, ccfg)
+        st = extend_chains(didx, seqs, lens, seeds, ch, ecfg, flt)
+        st["l_rep"] = seeds["l_rep"]
+        return st
+
+    def worker1_device_inner(self, didx, seqs, lens, lut=None):
+        return self._device_inner(didx, seqs, lens, lut, self.scfg,
+                                  self.ccfg, self.ecfg)
 
     @staticmethod
     def _unpack_host(buf: np.ndarray, B: int):
@@ -249,8 +279,10 @@ class Aligner:
             scfg, ccfg, ecfg = configs_from_opts(
                 self.opt, seed_impl=self.seed_impl,
                 text_len=2 * int(self.idx.l_pac), sa_dense=640, **big)
-            scfg = dataclasses.replace(scfg, fm_dense=4, offdiag_dense=2,
-                                       r2_rows=1, max_reseed=8)
+            if isinstance(scfg, LutSeedConfig):
+                scfg = dataclasses.replace(scfg, fm_dense=4,
+                                           offdiag_dense=2, r2_rows=1,
+                                           max_reseed=8)
             # the task-parallel engine with a 16x candidate budget covers
             # the worst single read (640 seeds) in one flat kernel batch
             ecfg = dataclasses.replace(ecfg, tail_rows=1,
@@ -277,10 +309,12 @@ class Aligner:
             scfg, ccfg, ecfg = configs_from_opts(
                 self.opt, seed_impl=self.seed_impl,
                 text_len=2 * int(self.idx.l_pac), sa_dense=1280, **big)
-            # full-width dense budgets: a tier-3 batch is ALL repeat
-            # monsters
-            scfg = dataclasses.replace(scfg, fm_dense=1, offdiag_dense=1,
-                                       r2_rows=1, max_reseed=8)
+            if isinstance(scfg, LutSeedConfig):
+                # full-width dense budgets: a tier-3 batch is ALL repeat
+                # monsters
+                scfg = dataclasses.replace(scfg, fm_dense=1,
+                                           offdiag_dense=1, r2_rows=1,
+                                           max_reseed=8)
             # ROUND engine here: a mega-repeat read extends hundreds of
             # seeds and the task-parallel engine's optimistic candidate
             # superset degenerates; sequential rounds are exact by
@@ -600,8 +634,9 @@ class Aligner:
 
     def _pe_hist(self, ctx: dict) -> np.ndarray:
         """pestat input: native per-pair (orientation, insert) samples ->
-        device histogram (4, max_ins+1) int64. The cross-host reduction of
-        the histogram belongs to the multi-host slice."""
+        device histogram (4, max_ins+1) int64, summed across the hosts of a
+        multi-host run (one reduce round per batch; a single process only
+        counts the round)."""
         batch = ctx["batch"]
         n_pairs = batch.n // 2
         dirs = np.zeros(max(n_pairs, 1), np.int32)
@@ -610,8 +645,9 @@ class Aligner:
             self.oracle._h, C.byref(ctx["copt"]), ctx["seqs_h"],
             ctx["lens_h"], batch.n, ctx["seqs_h"].shape[1], ctx["flat_h"],
             ctx["n_h"], ctx["lrep_h"], dirs, isz)
-        return np.ascontiguousarray(pe_hist_psum(
-            dirs[:n_pairs], isz[:n_pairs], self.opt.max_ins, self.device))
+        hist = pe_hist_psum(dirs[:n_pairs], isz[:n_pairs], self.opt.max_ins,
+                            self.device)
+        return np.ascontiguousarray(multihost.hist_allreduce(hist), np.int64)
 
     def _pe_tasks(self, ctx: dict) -> np.ndarray:
         """Native rescue-task generation: (n_t, 8) int64 rows (pair, end,
