@@ -76,7 +76,23 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                launched; on its first 256 reads collect_smems_anchor and
                collect_smems equal to Oracle.smems on every read that did
                not overflow; the anchor seed stage timed beside the LUT's.
-Phases 7-11 run between phases 5 and 6, each from counts of its own.
+ 12. dist    — device-level distribution on the card(s): worker1_sharded
+               on one SE batch (4096 x 100 bp, the phase-3 configs) over
+               every card (make_mesh()) and over 4 logical shards on
+               cuda:0, each twice (the second call copies no index), K1
+               launched, all 13 outputs equal to worker1_step on the
+               mesh's blocks and, on every read that overflows in neither
+               run, to worker1_step on the whole batch (a dense budget is
+               sized from a block's reads, so the split may move reads to
+               overflow); the same with a thread for each logical shard,
+               timed as the design not taken; a ShardedIndex of the index
+               over 4 logical shards
+               (and over every card when there are several): occ4_all,
+               inv_psi and sa_lookup of 65,536 random ranks and the
+               backward search of the batch's first 21-mers equal to the
+               replicated DeviceIndex, a routed round timed against a
+               replicated one; insert_size_psum equal to np.bincount.
+Phases 7-12 run between phases 5 and 6, each from counts of its own.
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
 The last line of standard output is {"ok": true, "device": {...}}.
@@ -84,7 +100,7 @@ The last line of standard output is {"ok": true, "device": {...}}.
 Run from the repository root: python3 chip_smoke.py
 (python3 chip_smoke.py kernels stops after phase 2: build, sweeps and row
 latency only, for work on the kernels; python3 chip_smoke.py slice runs
-the build and phases 7-11 only.)
+the build and phases 7-12 only.)
 """
 import json
 import os
@@ -1346,6 +1362,223 @@ def anchor_phase(aln, card: str) -> dict:
                 checked=checked)
 
 
+def sync_all():
+    """Wait for every card this process sees."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def backward_search(step, holder, qs, dt, text: int):
+    """Backward search of every row of qs (B, Q) from its last base: the
+    intervals (k, s) after each step, stacked (Q, B)."""
+    import torch
+    B, Q = qs.shape
+    k = torch.zeros(B, dtype=dt, device=qs.device)
+    s = torch.full((B,), text + 1, dtype=dt, device=qs.device)
+    ks, ss = [], []
+    for j in range(Q - 1, -1, -1):
+        alive = s > 0
+        k2, s2 = step(holder, torch.where(alive, k, 1),
+                      torch.where(alive, s, 1),
+                      torch.where(alive, qs[:, j], 0))
+        k = torch.where(alive & (s2 > 0), k2, k)
+        s = torch.where(alive, s2.clamp(min=0), s)
+        ks.append(k)
+        ss.append(s)
+    return torch.stack(ks), torch.stack(ss)
+
+
+def dist_phase(aln, card: str) -> dict:
+    """Phase 12: worker1 over a mesh of cards and of logical shards on
+    cuda:0, the row-sharded index's routed probes and the histogram sum,
+    each against the replicated single-device path (tolerance 0)."""
+    import numpy as np
+    import torch
+    from tpubwa_torch.dist import shard_index as sh
+    from tpubwa_torch.dist.mesh import (Mesh, insert_size_psum, make_mesh,
+                                        worker1_sharded, worker1_step)
+    from tpubwa_torch.index import device as dev
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.ops import sw
+
+    t_phase = time.time()
+    cuda0 = torch.device("cuda", 0)
+    n_cards = torch.cuda.device_count()
+    batch = fastx.batch_reads(se_reads(aln.idx)[1], max_len=READ_LEN)
+    seqs = torch.as_tensor(batch.seqs).to(cuda0).to(torch.int32)
+    lens = torch.as_tensor(batch.lens).to(cuda0)
+    cfg = dict(scfg=aln.scfg, ccfg=aln.ccfg, ecfg=aln.ecfg)
+
+    def timed(fn):
+        sync_all()
+        sw.ksw_extend.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        sync_all()
+        return out, (time.perf_counter() - t) * 1e3, sw.ksw_extend.launches
+
+    # ---- (a) worker1 over a mesh against worker1_step on the whole batch
+    # and on each block in turn (what entry i of a mesh must give: a dense
+    # budget of the step is sized from its block's reads, so the split may
+    # move reads to overflow, as the reference's shard_map does)
+    def on_blocks(n: int) -> dict:
+        b = batch.n // n
+        outs = [worker1_step(aln.didx, seqs[i * b:(i + 1) * b],
+                             lens[i * b:(i + 1) * b], aln.lut, **cfg)
+                for i in range(n)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    def thread_each(n: int) -> dict:
+        """The design not taken: a thread and a stream for each of n
+        logical shards on cuda:0."""
+        import concurrent.futures as cf
+        b = batch.n // n
+        caller = torch.cuda.current_stream()
+
+        def shard(i):
+            st = torch.cuda.Stream()
+            st.wait_stream(caller)
+            with torch.cuda.stream(st):
+                out = worker1_step(aln.didx, seqs[i * b:(i + 1) * b],
+                                   lens[i * b:(i + 1) * b], aln.lut, **cfg)
+            st.synchronize()
+            return out
+        with cf.ThreadPoolExecutor(n) as ex:
+            outs = list(ex.map(shard, range(n)))
+        out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        sync_all()
+        return out
+
+    def check(out: dict, blocks: dict, what: str) -> str:
+        bad = [k for k in whole if not torch.equal(out[k], blocks[k])]
+        if bad:
+            raise AssertionError(f"{what} differs from worker1_step on its "
+                                 f"blocks in {bad}")
+        kept = ~(out["overflow"] | whole["overflow"])
+        bad = [k for k in whole if not torch.equal(out[k][kept],
+                                                   whole[k][kept])]
+        if bad:
+            raise AssertionError(f"{what}: reads that overflow in neither "
+                                 f"run differ from the whole batch in {bad}")
+        moved = int((out["overflow"] & ~whole["overflow"]).sum())
+        back = int((whole["overflow"] & ~out["overflow"]).sum())
+        return (f"all 13 outputs equal to worker1_step on its blocks "
+                f"(tolerance 0) and, on the {int(kept.sum())} reads that "
+                f"overflow in neither, to the whole batch; the split moved "
+                f"{moved} reads to overflow and {back} out of it")
+
+    worker1_step(aln.didx, seqs, lens, aln.lut, **cfg)       # warm
+    whole, ms_whole, k1_whole = timed(
+        lambda: worker1_step(aln.didx, seqs, lens, aln.lut, **cfg))
+    print(f"dist: worker1_step on the whole batch of {batch.n} x "
+          f"{READ_LEN} bp: {ms_whole:.1f} ms, K1 launches {k1_whole}, "
+          f"{int(whole['overflow'].sum())} reads overflow [{card}]",
+          flush=True)
+    res = {"whole_ms": ms_whole, "k1_whole": k1_whole}
+    for name, mesh in ((f"every card ({n_cards})", make_mesh()),
+                       ("4 logical shards on cuda:0", Mesh((cuda0,) * 4))):
+        blocks = whole
+        if mesh.size > 1:
+            blocks, ms, k1 = timed(lambda: on_blocks(mesh.size))
+            print(f"dist: worker1_step on the {mesh.size} blocks in turn: "
+                  f"{ms:.1f} ms, K1 launches {k1} [{card}]", flush=True)
+            res[f"{name} blocks"] = (ms, k1)
+        runs = [("first call", lambda: worker1_sharded(
+                    mesh, aln.didx, seqs, lens, lut=aln.lut, **cfg)),
+                ("second call", lambda: worker1_sharded(
+                    mesh, aln.didx, seqs, lens, lut=aln.lut, **cfg))]
+        if mesh.size > 1 and len(set(mesh.devices)) == 1:
+            runs.append(("a thread for each entry (not the design)",
+                         lambda: thread_each(mesh.size)))
+        for call, fn in runs:
+            out, ms, k1 = timed(fn)
+            if k1 <= 0:
+                raise AssertionError(f"worker1 over {name} ({call}) "
+                                     f"launched K1 no time")
+            print(f"dist: worker1_sharded over {name}, {call}: "
+                  f"{check(out, blocks, name)}; {ms:.1f} ms against "
+                  f"{ms_whole:.1f} ms; K1 launches {k1} [{card}]",
+                  flush=True)
+            res[f"{name} {call}"] = (ms, k1)
+
+    # ---- (b) the row-sharded index against the replicated DeviceIndex
+    didx = aln.didx
+    text = 2 * didx.l_pac
+    rng = np.random.default_rng(12)
+    ranks = torch.as_tensor(rng.integers(0, text + 1, 65536)).to(
+        didx.pos_dtype).to(cuda0)
+    valid = torch.as_tensor(rng.random(65536) < 0.9).to(cuda0)
+    clean = (seqs[:, :21] < 4).all(dim=1)
+    qs = seqs[clean, :21].contiguous()
+    whole_bytes = sum(t.numel() * t.element_size()
+                      for t in (didx.occ_fused, didx.sa_samples))
+    idx_meshes = [("4 logical shards on cuda:0", Mesh((cuda0,) * 4))]
+    if n_cards > 1:
+        idx_meshes.append((f"every card ({n_cards})", make_mesh()))
+    for name, mesh in idx_meshes:
+        sidx = sh.ShardedIndex.from_device_index(didx, mesh)
+        for what, got, want in (
+                ("occ4_all", lambda: sh.run_sharded(
+                    mesh, sh.occ4_all_sharded, sidx, ranks),
+                 lambda: dev.occ4_all(didx, ranks)),
+                ("inv_psi", lambda: sh.run_sharded(
+                    mesh, sh.inv_psi_sharded, sidx, ranks),
+                 lambda: dev.inv_psi(didx, ranks)),
+                ("sa_lookup", lambda: sh.run_sharded(
+                    mesh, sh.sa_lookup_sharded, sidx, ranks, valid)[valid],
+                 lambda: dev.sa_lookup(didx, ranks, valid)[valid]),
+                ("backward search", lambda: torch.cat(sh.run_sharded(
+                    mesh, lambda h, q: backward_search(
+                        sh.backward_ext_sharded, h, q, didx.pos_dtype, text),
+                    sidx, qs)),
+                 lambda: torch.cat(backward_search(
+                     dev.backward_ext, didx, qs, didx.pos_dtype, text)))):
+            g, w = got(), want()
+            if not torch.equal(g, w):
+                raise AssertionError(f"sharded {what} over {name} differs "
+                                     f"from the replicated DeviceIndex")
+        reps = 20
+        rounds = {}
+        for how, fn in (("routed", lambda: sh.occ4_all_sharded(sidx, ranks)),
+                        ("replicated", lambda: dev.occ4_all(didx, ranks))):
+            fn()
+            sync_all()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync_all()
+            rounds[how] = (time.perf_counter() - t) * 1e3 / reps
+        held = [sidx.shard_bytes(i) for i in range(mesh.size)]
+        print(f"dist: ShardedIndex over {name}: occ4_all, inv_psi and "
+              f"sa_lookup of 65536 ranks and the backward search of "
+              f"{qs.shape[0]} reads' first 21-mers equal the replicated "
+              f"DeviceIndex (tolerance 0); a round of occ4_all on 65536 "
+              f"ranks {rounds['routed']:.4f} ms routed against "
+              f"{rounds['replicated']:.4f} ms replicated; a shard holds "
+              f"{max(held)} of the {whole_bytes} bytes of occ rows and SA "
+              f"samples ({100 * max(held) / whole_bytes:.1f}%) [{card}]",
+              flush=True)
+        res[f"index {name}"] = (rounds, max(held), whole_bytes)
+
+    # ---- (c) the insert-size histogram summed over the mesh
+    inserts = rng.integers(-10, 1200, batch.n).astype(np.int32)
+    ok = rng.random(batch.n) < 0.8
+    want = np.bincount(np.clip(inserts, 0, 1000)[ok], minlength=1001)
+    for name, mesh in ((f"every card ({n_cards})", make_mesh()),
+                       ("4 logical shards on cuda:0", Mesh((cuda0,) * 4))):
+        got = insert_size_psum(mesh, torch.as_tensor(inserts).to(cuda0),
+                               torch.as_tensor(ok).to(cuda0), max_ins=1000)
+        if got.device != cuda0 or not np.array_equal(got.cpu().numpy(),
+                                                     want):
+            raise AssertionError(f"insert_size_psum over {name} differs "
+                                 f"from np.bincount")
+    print(f"dist: insert_size_psum of {batch.n} inserts over every card and "
+          f"over 4 logical shards equals np.bincount; phase 12 took "
+          f"{time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1370,9 +1603,10 @@ def main() -> int:
         cli_phases(aln, card)
         multihost_phase(aln, card)
         anchor_phase(aln, card)
+        dist_phase(aln, card)
         print(f"{card}")
         print(json.dumps({"ok": True, "device": device,
-                          "phases": "build and phases 7-11 only"}))
+                          "phases": "build and phases 7-12 only"}))
         return 0
     worst = parity(card)
     worst2 = parity_k2(card)
@@ -1388,7 +1622,8 @@ def main() -> int:
     cli_res = cli_phases(aln, card)
     multihost_phase(aln, card)
     anc = anchor_phase(aln, card)
-    print(f"phases 7-11 (CLI, shards, multihost, anchor) took "
+    dist_phase(aln, card)
+    print(f"phases 7-12 (CLI, shards, multihost, anchor, dist) took "
           f"{time.time() - t_new:.1f} s", flush=True)
     r1 = {}
     for path, args, n_l in (("SE", k1_args, launches),

@@ -19,7 +19,8 @@ def test_import_pulls_in_no_jax_and_no_tpubwa():
             "import tpubwa_torch, tpubwa_torch.pipeline, "
             "tpubwa_torch.ops.sw, tpubwa_torch.ops.sw_local, "
             "tpubwa_torch.ops.cubuild, tpubwa_torch.pair.rescue, "
-            "tpubwa_torch.dist.mesh, tpubwa_torch.cli, "
+            "tpubwa_torch.dist.mesh, tpubwa_torch.dist.shard_index, "
+            "tpubwa_torch.cli, "
             "tpubwa_torch.io.sam, tpubwa_torch.dist.multihost, "
             "tpubwa_torch.seed.anchor, tpubwa_torch.seed.device, "
             "tpubwa_torch.index.fmquery, tpubwa_torch.utils.profiling\n"
@@ -88,3 +89,11 @@ def test_seed_impl_anchor_configs_equal_reference():
         assert ext == {k: jext[k] for k in ext}
     with pytest.raises(ValueError, match="seed_impl"):
         configs_from_opts(MemOptions(), seed_impl="fm")
+
+
+def test_mapq_coef_fac_equals_reference():
+    from tpubwa.opts import MemOptions as JMemOptions
+    from tpubwa_torch.opts import MemOptions
+    for coef in (50.0, 1.5, 1000.0):
+        assert MemOptions(mapq_coef_len=coef).mapq_coef_fac == \
+            JMemOptions(mapq_coef_len=coef).mapq_coef_fac

@@ -158,3 +158,43 @@ def test_build_index_matches_tpubwa():
         assert getattr(tidx, f) == getattr(jidx, f)
     for f in ("L2", "bwt_words", "occ_cp", "sa_samples", "pac", "ambs"):
         np.testing.assert_array_equal(getattr(tidx, f), getattr(jidx, f))
+
+
+def test_get_base_equals_tpubwa(world):
+    jidx, tidx = world
+    rng = np.random.default_rng(11)
+    text = 2 * jidx.l_pac
+    for pos in [0, jidx.l_pac - 1, jidx.l_pac, text - 1,
+                *rng.integers(0, text, 500)]:
+        assert tidx.get_base(int(pos)) == jidx.get_base(int(pos))
+
+
+def test_unpack_2bit_equals_tpubwa():
+    from tpubwa_torch.utils import dna as tdna
+    rng = np.random.default_rng(12)
+    codes = rng.integers(0, 4, 1001).astype(np.uint8)
+    pac = dna.pack_2bit(codes)
+    for n in (0, 1, 3, 4, 5, 1000, 1001):
+        got = tdna.unpack_2bit(pac, n)
+        np.testing.assert_array_equal(got, dna.unpack_2bit(pac, n))
+        np.testing.assert_array_equal(got, codes[:n])
+        assert got.dtype == np.uint8
+
+
+def test_device_index_and_lut_move_whole_or_not_at_all(world):
+    from tpubwa_torch.seed.lut import KmerLUT
+    _, tidx = world
+    td = tdev.DeviceIndex.from_host(tidx, "cpu")
+    assert td.to("cpu") is td
+    moved = td.to("meta")
+    assert (moved.l_pac, moved.primary, moved.sa_intv) == \
+        (td.l_pac, td.primary, td.sa_intv)
+    for f in dataclasses.fields(td):
+        v = getattr(moved, f.name)
+        if isinstance(v, torch.Tensor):
+            assert v.device.type == "meta" and v.dtype == \
+                getattr(td, f.name).dtype and v.shape == \
+                getattr(td, f.name).shape, f.name
+    lut = KmerLUT(4, torch.zeros((256, 2), dtype=torch.int32))
+    assert lut.to("cpu") is lut
+    assert lut.to("meta").ksp.device.type == "meta" and lut.to("meta").k0 == 4

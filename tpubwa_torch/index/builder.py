@@ -75,6 +75,10 @@ class FMIndex:
     ambs: np.ndarray           # int64[n_amb, 2]: (offset, len) N-runs
 
     # ---- reference sequence access [bwa: bntseq.c :: bns_get_seq] ----
+    def get_base(self, pos: int) -> int:
+        """Base of the *bidirectional* text at pos in [0, 2*l_pac)."""
+        return int(self.get_seq(pos, pos + 1)[0])
+
     def get_seq(self, beg: int, end: int) -> np.ndarray:
         """Text slice [beg, end) of the bidirectional genome, vectorized."""
         beg, end = int(beg), int(end)

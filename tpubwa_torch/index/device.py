@@ -48,6 +48,17 @@ class DeviceIndex:
     def device(self) -> torch.device:
         return self.L2.device
 
+    def to(self, device) -> "DeviceIndex":
+        """This index on ``device``: itself where it lies there already,
+        else a copy with every tensor moved."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
     @staticmethod
     def from_host(idx: FMIndex, device) -> "DeviceIndex":
         if int(idx.occ_cp.max(initial=0)) >= 2**31:
@@ -134,24 +145,30 @@ def _row_cp(row: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         .to(torch.int32)
 
 
-def occ_prefix(didx: DeviceIndex, n: torch.Tensor,
-               c: torch.Tensor) -> torch.Tensor:
-    """#occurrences of base c in stored-BWT[0, n). ONE fused-row gather.
-    Returns int32 (counts < 2**31 by the build-time guard)."""
-    r = (n - 1).clamp(min=0) >> 6
-    row = didx.occ_fused[r.to(torch.int64)]
-    m = (n - r * 64).to(torch.int32)           # in [0, 64]
-    return _row_cp(row, c) + _count_first(row[..., 4:8], c, m)
+def stored_prefix(k: torch.Tensor, primary: int) -> torch.Tensor:
+    """Length n of the stored-BWT prefix [0, n) that conceptual index k
+    covers inclusively (the $ row is not stored) [bwa: bwt_occ]."""
+    n = torch.where(k < 0, 0, k + 1 - (k >= primary).to(k.dtype))
+    return n.clamp(min=0)
 
 
-def occ4_all(didx: DeviceIndex, k: torch.Tensor) -> torch.Tensor:
-    """occ of all 4 bases at conceptual index k inclusive — ONE gather,
-    four popcount passes over the same fused row [bwa: bwt_2occ4]."""
-    n = torch.where(k < 0, 0, k + 1 - (k >= didx.primary).to(k.dtype))
-    n = n.clamp(min=0)
-    r = (n - 1).clamp(min=0) >> 6
-    row = didx.occ_fused[r.to(torch.int64)]
-    m = (n - r * 64).to(torch.int32)
+def occ_row_of(n: torch.Tensor) -> torch.Tensor:
+    """Fused row whose checkpoint + block counts the prefix [0, n)."""
+    return (n - 1).clamp(min=0) >> 6
+
+
+def occ_from_row(row: torch.Tensor, m: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """Count of base c in a fused row's checkpoint plus the first m (0..64)
+    bases of its block -> int32."""
+    return _row_cp(row, c) + _count_first(row[..., 4:8], c,
+                                          m.to(torch.int32))
+
+
+def occ4_from_row(row: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """occ_from_row for all 4 bases -> (..., 4) int32: four popcount passes
+    over the same row [bwa: bwt_2occ4]."""
+    m = m.to(torch.int32)
     words = row[..., 4:8]
     cnts = torch.stack(
         [_count_first(words, torch.full_like(m, c), m) for c in range(4)],
@@ -159,10 +176,25 @@ def occ4_all(didx: DeviceIndex, k: torch.Tensor) -> torch.Tensor:
     return row[..., 0:4].to(torch.int32) + cnts
 
 
+def occ_prefix(didx: DeviceIndex, n: torch.Tensor,
+               c: torch.Tensor) -> torch.Tensor:
+    """#occurrences of base c in stored-BWT[0, n). ONE fused-row gather.
+    Returns int32 (counts < 2**31 by the build-time guard)."""
+    r = occ_row_of(n)
+    return occ_from_row(didx.occ_fused[r.to(torch.int64)], n - r * 64, c)
+
+
+def occ4_all(didx: DeviceIndex, k: torch.Tensor) -> torch.Tensor:
+    """occ of all 4 bases at conceptual index k inclusive — ONE gather,
+    four popcount passes over the same fused row [bwa: bwt_2occ4]."""
+    n = stored_prefix(k, didx.primary)
+    r = occ_row_of(n)
+    return occ4_from_row(didx.occ_fused[r.to(torch.int64)], n - r * 64)
+
+
 def occ1(didx: DeviceIndex, k: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """bwa bwt_occ: count of c in stored-BWT[0..k] inclusive, conceptual k."""
-    n = torch.where(k < 0, 0, k + 1 - (k >= didx.primary).to(k.dtype))
-    return occ_prefix(didx, n.clamp(min=0), c)
+    return occ_prefix(didx, stored_prefix(k, didx.primary), c)
 
 
 def _word_base(row: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -188,16 +220,23 @@ def backward_ext(didx: DeviceIndex, k: torch.Tensor, s: torch.Tensor,
     return k2, s2
 
 
-def inv_psi(didx: DeviceIndex, k: torch.Tensor) -> torch.Tensor:
-    """LF step on conceptual rank [bwa: bwt.c :: bwt_invPsi] — one gather:
-    the BWT base at x and its occ count come from the same fused row."""
-    x = k - (k > didx.primary).to(k.dtype)
-    row = didx.occ_fused[(x >> 6).to(torch.int64)]
+def inv_psi_from_row(L2: torch.Tensor, primary: int, row: torch.Tensor,
+                     k: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """LF step on conceptual rank k from the fused row x >> 6 of its stored
+    index x = k - (k > primary): the BWT base at x and its occ count both
+    come from that row."""
     c = _word_base(row, x)
     cnt = _row_cp(row, c) + _count_first(row[..., 4:8], c,
                                          ((x & 63) + 1).to(torch.int32))
-    res = didx.L2[c.to(torch.int64)] + cnt
-    return torch.where(k == didx.primary, 0, res).to(k.dtype)
+    res = L2[c.to(torch.int64)] + cnt
+    return torch.where(k == primary, 0, res).to(k.dtype)
+
+
+def inv_psi(didx: DeviceIndex, k: torch.Tensor) -> torch.Tensor:
+    """LF step on conceptual rank [bwa: bwt.c :: bwt_invPsi] — one gather."""
+    x = k - (k > didx.primary).to(k.dtype)
+    return inv_psi_from_row(didx.L2, didx.primary,
+                            didx.occ_fused[(x >> 6).to(torch.int64)], k, x)
 
 
 def sa_lookup(didx: DeviceIndex, k: torch.Tensor,

@@ -13,6 +13,7 @@ the alignment runs.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -59,6 +60,10 @@ class MemOptions:
     xa_drop_ratio: float = 0.80 # emit XA only if score >= ratio * primary score
 
     # --- derived, cached -------------------------------------------------
+    @property
+    def mapq_coef_fac(self) -> float:
+        return math.log(self.mapq_coef_len)
+
     @property
     def split_len(self) -> int:
         """SMEMs longer than this are candidates for 2nd-round re-seeding."""

@@ -33,19 +33,18 @@ import os
 import numpy as np
 import torch
 
-from .chain.device import ChainConfig, chain_filter, chain_seeds, \
-    seeds_from_smems
+from .chain.device import ChainConfig
 from .dist import multihost
-from .dist.mesh import pe_hist_psum
-from .extend.worker import ExtendConfig, extend_chains
+from .dist.mesh import pe_hist_psum, worker1_step
+from .extend.worker import ExtendConfig
 from .index.builder import FMIndex
 from .index.device import DeviceIndex
 from .io.fastx import ReadBatch
 from .opts import MemOptions
 from .oracle import Oracle, sam_args, to_copt
 from .pair.rescue import dispatch_rescue_tasks
-from .seed.anchor import AnchorSeedConfig, collect_smems_anchor
-from .seed.lut import KmerLUT, LutSeedConfig, collect_smems_lut
+from .seed.anchor import AnchorSeedConfig
+from .seed.lut import KmerLUT, LutSeedConfig
 
 REG_FIELDS = ("rb", "re", "qb", "qe", "score", "truesc", "w", "seedcov",
               "seedlen0", "rid")
@@ -210,37 +209,21 @@ class Aligner:
         def packed(seqs, lens):
             seqs = seqs.to(torch.int32)      # uint8 over the wire
             lens = lens.to(torch.int32)
-            st = self._device_inner(self.didx, seqs, lens, self.lut, scfg,
-                                    ccfg, ecfg)
+            st = worker1_step(self.didx, seqs, lens, self.lut, scfg=scfg,
+                              ccfg=ccfg, ecfg=ecfg)
             return _pack(st, st["l_rep"], R, cap_factor * seqs.shape[0])
 
         return packed
 
     def worker1_device(self, seqs: torch.Tensor, lens: torch.Tensor):
-        """Device half with the tier-1 configs: returns the region-state
-        dict from extend_chains, with l_rep."""
-        return self._device_inner(self.didx, seqs, lens, self.lut, self.scfg,
-                                  self.ccfg, self.ecfg)
-
-    def _collect_smems(self, didx, seqs, lens, lut=None, scfg=None):
-        scfg = scfg or self.scfg
-        if self.seed_impl == "lut":
-            return collect_smems_lut(didx, lut if lut is not None
-                                     else self.lut, seqs, lens, scfg)
-        return collect_smems_anchor(didx, seqs, lens, scfg)
-
-    def _device_inner(self, didx, seqs, lens, lut, scfg, ccfg, ecfg):
-        smems = self._collect_smems(didx, seqs, lens, lut, scfg)
-        seeds = seeds_from_smems(didx, smems, ccfg)
-        ch = chain_seeds(didx, seeds, ccfg)
-        flt = chain_filter(ch, ccfg)
-        st = extend_chains(didx, seqs, lens, seeds, ch, ecfg, flt)
-        st["l_rep"] = seeds["l_rep"]
-        return st
+        """Device half with the tier-1 configs: the region-state dict of
+        ``dist.mesh.worker1_step``."""
+        return self.worker1_device_inner(self.didx, seqs, lens)
 
     def worker1_device_inner(self, didx, seqs, lens, lut=None):
-        return self._device_inner(didx, seqs, lens, lut, self.scfg,
-                                  self.ccfg, self.ecfg)
+        return worker1_step(didx, seqs, lens,
+                            lut if lut is not None else self.lut,
+                            scfg=self.scfg, ccfg=self.ccfg, ecfg=self.ecfg)
 
     @staticmethod
     def _unpack_host(buf: np.ndarray, B: int):

@@ -188,6 +188,14 @@ class KmerLUT:
                 np.savez(str(cache), k0=k0, ksp=ksp, fp=fp)
         return KmerLUT(k0, torch.as_tensor(ksp).to(device))
 
+    def to(self, device) -> "KmerLUT":
+        """This table on ``device``: itself where it lies there already,
+        else a copy."""
+        device = torch.device(device)
+        if self.ksp.device == device:
+            return self
+        return KmerLUT(self.k0, self.ksp.to(device))
+
 
 # --------------------------------------------------------------------------
 # device walk

@@ -44,3 +44,13 @@ def pack_2bit(codes: np.ndarray) -> np.ndarray:
         (quads[:, 0] << 6) | (quads[:, 1] << 4) | (quads[:, 2] << 2) | quads[:, 3]
     ).astype(np.uint8)
 
+
+def unpack_2bit(pac: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of :func:`pack_2bit`; returns the first ``n`` codes."""
+    pac = np.asarray(pac, dtype=np.uint8)
+    out = np.empty(len(pac) * 4, dtype=np.uint8)
+    out[0::4] = (pac >> 6) & 3
+    out[1::4] = (pac >> 4) & 3
+    out[2::4] = (pac >> 2) & 3
+    out[3::4] = pac & 3
+    return out[:n]
