@@ -71,7 +71,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                its two lone batches; host 1's shard the rest of that batch;
                the inserts are planted so that host 0's first batch aligns
                differently with its own histogram, else the phase fails;
- 11. anchor  — one SE batch of 4096 x 100 bp through Aligner(seed_impl=
+ 11. anchor  — one SE batch of 1024 x 100 bp through Aligner(seed_impl=
                "anchor", device="cuda"), SAM byte-equal to the oracle, K1
                launched; on its first 256 reads collect_smems_anchor and
                collect_smems equal to Oracle.smems on every read that did
@@ -84,23 +84,48 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                mesh's blocks and, on every read that overflows in neither
                run, to worker1_step on the whole batch (a dense budget is
                sized from a block's reads, so the split may move reads to
-               overflow); the same with a thread for each logical shard,
-               timed as the design not taken; a ShardedIndex of the index
-               over 4 logical shards
+               overflow); a ShardedIndex of the index over 4 logical
+               shards
                (and over every card when there are several): occ4_all,
                inv_psi and sa_lookup of 65,536 random ranks and the
                backward search of the batch's first 21-mers equal to the
                replicated DeviceIndex, a routed round timed against a
                replicated one; insert_size_psum equal to np.bincount.
-Phases 7-12 run between phases 5 and 6, each from counts of its own.
+ 13. long    — long reads (BASELINE config 5) against the 4.6 Mbp index: 256
+               SE reads of 250 bp (seed 43), 1024 reads of 76-250 bp
+               through align_se and align_se_stream, 64 chimeric and 64
+               adapter-clipped 250 bp reads; every SAM byte-equal to the
+               oracle; fails unless a line has flag 0x800 and SA:Z, a CIGAR
+               a soft clip, and K1 ran its K=8 register instance; prints
+               the third cap bucket's worker1 calls and K1 launches;
+ 14. int64   — a second aligner with the index and LUT widened to int64
+               aligns phase 3's and phase 5's first timed batch: SAM
+               byte-equal to the int32 aligner's and the oracle's, K1 and
+               K2 launched, no rescue result missing;
+ 15. scale   — tools/scale_bench at 64 Mbp (chr20 size, BASELINE config 3):
+               the genome, index and LUT built (cold) by a --prepare process
+               started before phase 7 (phases 7-14 run beside it, and each
+               prints whether it still ran at its end), one warm-up and 2
+               timed streamed batches of 4096 SE reads, every line
+               byte-equal to the oracle; tier-1 overflow per batch and
+               whether tier 2 fired (if it fired on no batch, a batch
+               built from the overflow reads opens its gate); the tier-2
+               call's time and a stage split of that batch (tiers, finish,
+               the whole batch); the PE row (1024 pairs, byte-equal to
+               Oracle.align_pe, no rescue result missing).
+Phases 7-15 run between phases 5 and 6, each from counts of its own;
+phase 6 also holds K1 on the first call of phases 13, 14 and 15 and K2 on
+phase 15's first forward call to their plain versions (4 more entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
+Every phase prints its seconds, and the call its whole seconds.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 (python3 chip_smoke.py kernels stops after phase 2: build, sweeps and row
 latency only, for work on the kernels; python3 chip_smoke.py slice runs
-the build and phases 7-12 only.)
+the build and phases 7-12 only; python3 chip_smoke.py scale the build and
+phases 13-15, with the kernels line of their 4 entries.)
 """
 import json
 import os
@@ -131,7 +156,10 @@ OPS_PER_CELL = 15       # int32 operations per banded DP cell (see PERF.md)
 # E' = max(E - e_del, H - oe_del, 0) 4; row max with its column 3
 K2_OPS_PER_CELL = 20
 SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, a=1, b=4)
+# the same scores under ksw_align_batch's names (the reference's)
+ALIGN_SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, a_sc=1, b_sc=4)
 DEVICE = "cuda"         # the device of the command-line and anchor phases
+ANCHOR_READS = 1024     # phase 11's batch (cut from 4096 for time)
 
 
 def card_line() -> str:
@@ -485,7 +513,7 @@ def parity_k2(card: str):
     # against the scalar ksw_align, an independent implementation
     q, ql, t, tl, minsc, _ = local_tasks(100, 151, 512, dev)
     got = ksw_align_batch(q, ql, t, tl, minsc, torch.ones_like(ql),
-                          **SCORING).cpu().numpy()
+                          **ALIGN_SCORING).cpu().numpy()
     qh, qlh, th, tlh = (x.cpu().numpy() for x in (q, ql, t, tl))
     keys = ("score", "tb", "te", "qb", "qe", "score2", "te2")
     want = np.array([[oracle.ksw_align_local(
@@ -723,7 +751,7 @@ def print_steps(label: str, out: list, n_reads: int, card: str):
           f"reads [{card}]", flush=True)
 
 
-def stages(aln, batch, id0: int, card: str):
+def stages(aln, batch, id0: int, card: str, label: str = "stage"):
     """Time one batch stage by stage; each stage ends in a synchronize."""
     import torch
     from tpubwa_torch.chain.device import (chain_filter, chain_seeds,
@@ -751,7 +779,7 @@ def stages(aln, batch, id0: int, card: str):
     sam = step("finish", lambda: aln._finish_threaded(batch, *regs, id0))
     if sam != aln.oracle.align_se(batch, aln.opt, id0=id0):
         raise AssertionError("stage-by-stage SAM differs from the oracle")
-    print_steps("stage", out, batch.n, card)
+    print_steps(label, out, batch.n, card)
 
 
 def pe_e2e(aln, card: str):
@@ -897,7 +925,7 @@ def pe_stages(aln, batch, id0: int, card: str):
         res = step("rescue align", lambda: rescue.ksw_align_batch(
             q, la, t, wl,
             torch.full((n,), 19, dtype=torch.int32, device=dev),
-            torch.ones(n, dtype=torch.int32, device=dev), **SCORING))
+            torch.ones(n, dtype=torch.int32, device=dev), **ALIGN_SCORING))
     finally:
         rescue.ksw_local = real
     ctx["res_dev"] = res
@@ -1290,7 +1318,8 @@ def anchor_phase(aln, card: str) -> dict:
     from tpubwa_torch.seed.anchor import collect_smems_anchor
     from tpubwa_torch.seed.device import SeedConfig, collect_smems
     from tpubwa_torch.seed.lut import collect_smems_lut
-    batch = fastx.batch_reads(se_reads(aln.idx)[1], max_len=READ_LEN)
+    batch = fastx.batch_reads(se_reads(aln.idx)[1][:ANCHOR_READS],
+                              max_len=READ_LEN)
     t0 = time.time()
     anc = Aligner(aln.idx, aln.opt, seed_impl="anchor", device=DEVICE)
     t_init = time.time() - t0
@@ -1429,27 +1458,6 @@ def dist_phase(aln, card: str) -> dict:
                 for i in range(n)]
         return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
-    def thread_each(n: int) -> dict:
-        """The design not taken: a thread and a stream for each of n
-        logical shards on cuda:0."""
-        import concurrent.futures as cf
-        b = batch.n // n
-        caller = torch.cuda.current_stream()
-
-        def shard(i):
-            st = torch.cuda.Stream()
-            st.wait_stream(caller)
-            with torch.cuda.stream(st):
-                out = worker1_step(aln.didx, seqs[i * b:(i + 1) * b],
-                                   lens[i * b:(i + 1) * b], aln.lut, **cfg)
-            st.synchronize()
-            return out
-        with cf.ThreadPoolExecutor(n) as ex:
-            outs = list(ex.map(shard, range(n)))
-        out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-        sync_all()
-        return out
-
     def check(out: dict, blocks: dict, what: str) -> str:
         bad = [k for k in whole if not torch.equal(out[k], blocks[k])]
         if bad:
@@ -1488,9 +1496,6 @@ def dist_phase(aln, card: str) -> dict:
                     mesh, aln.didx, seqs, lens, lut=aln.lut, **cfg)),
                 ("second call", lambda: worker1_sharded(
                     mesh, aln.didx, seqs, lens, lut=aln.lut, **cfg))]
-        if mesh.size > 1 and len(set(mesh.devices)) == 1:
-            runs.append(("a thread for each entry (not the design)",
-                         lambda: thread_each(mesh.size)))
         for call, fn in runs:
             out, ms, k1 = timed(fn)
             if k1 <= 0:
@@ -1579,7 +1584,464 @@ def dist_phase(aln, card: str) -> dict:
     return res
 
 
+LONG_READ_LEN = 250
+LONG_READS = 256        # SE 250 bp reads of phase 13 (seed 43)
+MIXED_READS = 1024      # reads of 76-250 bp in phase 13's mixed batch
+CLIP_READS = 64         # chimeric and adapter-clipped reads, each
+SCALE_MBP = 64          # phase 15's genome (chr20 size, BASELINE config 3)
+SCALE_READS = 8192      # phase 15's timed SE reads (2 batches of 4096)
+
+
+def count_k1(fn, log: list, first: list = None):
+    """Run fn with K1's launch count set to 0 and every call's shape (and
+    the first call's inputs, when ``first`` is given) recorded; returns
+    (fn's result, K1 launches)."""
+    from tpubwa_torch.extend import worker
+    from tpubwa_torch.ops import sw
+    real = worker.ksw_extend
+    worker.ksw_extend = k1_recorder(real, first, log)
+    try:
+        sw.ksw_extend.launches = 0
+        out = fn()
+        return out, sw.ksw_extend.launches
+    finally:
+        worker.ksw_extend = real
+
+
+def long_records(fwd, n: int, seed: int) -> list:
+    """n chimeric 250 bp reads (100-149 bases of one locus, the rest from
+    another: a primary and a supplementary line) and n adapter-clipped
+    ones (220 bases of the genome and 30 random: a soft clip), built as
+    tests/test_long_reads.py builds them, over the whole genome."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.utils import dna
+    rng = np.random.default_rng(seed)
+    top = len(fwd) - 300
+    recs = []
+    for i in range(n):
+        p1, p2 = (int(x) for x in rng.integers(0, top, 2))
+        c = int(rng.integers(100, 150))
+        recs.append(fastx.FastxRecord(f"split{i}", dna.decode(
+            np.concatenate([fwd[p1:p1 + c], fwd[p2:p2 + 250 - c]]))))
+    for i in range(n):
+        p = int(rng.integers(0, top))
+        junk = rng.integers(0, 4, 30).astype(np.uint8)
+        recs.append(fastx.FastxRecord(f"ad{i}", dna.decode(
+            np.concatenate([fwd[p:p + 220], junk]))))
+    return recs
+
+
+def long_phase(aln, card: str) -> dict:
+    """Phase 13: long reads on the card (BASELINE config 5). 256 SE reads
+    of 250 bp (seed 43), a mixed batch of 1024 reads of 76-250 bp through
+    align_se and through align_se_stream (two batches of 512), and 64
+    chimeric + 64 adapter-clipped 250 bp reads: every SAM byte-equal to
+    the oracle's. Fails unless a line has flag 0x800 and an SA:Z tag, a
+    CIGAR has a soft clip, and K1 ran the K=8 register instance."""
+    import numpy as np
+    import torch
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.ops import sw
+    t_phase = time.time()
+    idx = aln.idx
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    long = fastx.batch_reads(fastx.simulate_reads(
+        fwd, LONG_READS, read_len=LONG_READ_LEN, error_rate=0.01,
+        indel_rate=0.001, seed=43), max_len=LONG_READ_LEN)
+    sims = fastx.simulate_reads(fwd, MIXED_READS, read_len=LONG_READ_LEN,
+                                error_rate=0.01, indel_rate=0.001, seed=44)
+    cut = np.random.default_rng(45).integers(76, LONG_READ_LEN + 1,
+                                             MIXED_READS)
+    mixed_recs = [fastx.FastxRecord(r.name, r.seq[:L])
+                  for r, L in zip(sims, cut)]
+    mixed = fastx.batch_reads(mixed_recs, max_len=LONG_READ_LEN)
+    halves = [fastx.batch_reads(mixed_recs[i:i + MIXED_READS // 2],
+                                max_len=LONG_READ_LEN)
+              for i in (0, MIXED_READS // 2)]
+    clip = fastx.batch_reads(long_records(fwd, CLIP_READS, 46),
+                             max_len=LONG_READ_LEN)
+    # the third cap bucket's packed worker1, wrapped to count its calls
+    # and the K1 launches made inside them
+    key = aln._CAP_BUCKETS[-1][0]
+    aln._packed_for_len(LONG_READ_LEN)
+    real3 = aln._packed[key]
+    bucket3 = {"calls": 0, "k1": 0}
+
+    def third(seqs, lens):
+        before = sw.ksw_extend.launches
+        out = real3(seqs, lens)
+        bucket3["calls"] += 1
+        bucket3["k1"] += sw.ksw_extend.launches - before
+        return out
+
+    def run():
+        t = {}
+        for name, fn in (
+                ("250 bp", lambda: aln.align_se(long, id0=0)),
+                ("mixed", lambda: aln.align_se(mixed, id0=0)),
+                ("mixed streamed", lambda: "".join(
+                    aln.align_se_stream(halves, id0=0))),
+                ("clipped", lambda: aln.align_se(clip, id0=0))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t[name] = (fn(), time.perf_counter() - t0)
+        return t
+    aln._packed[key] = third
+    aln.stats = {"reads": 0, "fallback_reads": 0}
+    k1_first, k1_log = [], []
+    try:
+        out, k1 = count_k1(run, k1_log, k1_first)
+    finally:
+        aln._packed[key] = real3
+    o = aln.opt
+    want = {"250 bp": aln.oracle.align_se(long, o, id0=0),
+            "mixed": aln.oracle.align_se(mixed, o, id0=0),
+            "clipped": aln.oracle.align_se(clip, o, id0=0)}
+    want["mixed streamed"] = want["mixed"]
+    for name, (sam, _) in out.items():
+        first_diff(sam, want[name], f"phase 13 {name} SAM against the "
+                   "oracle")
+    lines = [l.split("\t") for name, (sam, _) in out.items()
+             for l in sam.splitlines()]
+    supp = sum(1 for f in lines if int(f[1]) & 0x800 and
+               any(t.startswith("SA:Z:") for t in f[11:]))
+    soft = sum(1 for f in lines if "S" in f[5])
+    k8 = sum(1 for n, q, t in k1_log if sw.kernel_instance(q) == 8)
+    print(f"long: {LONG_READS} SE reads of {LONG_READ_LEN} bp "
+          f"({out['250 bp'][1]:.2f} s, {LONG_READS / out['250 bp'][1]:.1f} "
+          f"reads/s), {MIXED_READS} reads of 76-{LONG_READ_LEN} bp through "
+          f"align_se ({out['mixed'][1]:.2f} s) and align_se_stream "
+          f"({out['mixed streamed'][1]:.2f} s), {2 * CLIP_READS} chimeric "
+          f"and adapter-clipped reads ({out['clipped'][1]:.2f} s): every "
+          f"SAM byte-equal to the oracle; {supp} supplementary lines with "
+          f"SA:Z, {soft} lines with a soft clip; fallback "
+          f"{aln.stats['fallback_reads']} of {aln.stats['reads']} reads, "
+          f"tier1 overflow {aln.stats.get('tier1_ovf', 0)}; K1 launches "
+          f"{k1}, {k8} of them by the K=8 register instance; the third "
+          f"cap bucket ran {bucket3['calls']} worker1 calls with "
+          f"{bucket3['k1']} K1 launches [{card}]", flush=True)
+    print_k1_shapes("long", k1_log, "phase 13's batches", card)
+    if not supp or not soft or not k8 or not bucket3["calls"]:
+        raise AssertionError(
+            f"phase 13: {supp} supplementary lines with SA:Z, {soft} soft "
+            f"clips, {k8} K1 launches of the K=8 instance, "
+            f"{bucket3['calls']} calls of the third cap bucket: each must "
+            "be at least one")
+    print(f"phase 13 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return dict(first=k1_first[0], k1=k1, bucket3=bucket3)
+
+
+def widen(aln):
+    """The aligner with its DeviceIndex (L2, sa_samples, ann_end) and its
+    k-mer table in int64, the width of a text of 2**31 or more."""
+    import dataclasses
+    import torch
+    from tpubwa_torch.seed.lut import KmerLUT
+    d = aln.didx
+    aln.didx = dataclasses.replace(
+        d, L2=d.L2.to(torch.int64), sa_samples=d.sa_samples.to(torch.int64),
+        ann_end=d.ann_end.to(torch.int64))
+    aln.lut = KmerLUT(aln.lut.k0, aln.lut.ksp.to(torch.int64))
+    return aln
+
+
+def int64_phase(aln, card: str) -> dict:
+    """Phase 14: int64 positions on the card. A second aligner of the
+    4.6 Mbp index, widened to int64, aligns phase 3's first timed batch
+    (4096 x 100 bp) and phase 5's (2048 pairs): each SAM byte-equal to the
+    int32 aligner's on the same batch and to the oracle's; K1 and K2
+    launched; no rescue result missing."""
+    import torch
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.ops import sw_local
+    t_phase = time.time()
+    se = fastx.batch_reads(se_reads(aln.idx)[1], max_len=READ_LEN)
+    pe = fastx.batch_reads(pe_reads(aln.idx)[1], max_len=PE_READ_LEN)
+    t32 = {}
+    for name, fn in (("SE", lambda: aln.align_se(se, id0=BATCH)),
+                     ("PE", lambda: aln.align_pe(pe, id0=PE_PAIRS))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t32[name] = (fn(), time.perf_counter() - t0)
+    sam32, pe32 = t32["SE"][0], t32["PE"][0]
+    aln64 = widen(make_aligner())
+    if aln64.didx.pos_dtype != torch.int64:
+        raise AssertionError("the widened index is not int64")
+    lib = aln64.oracle._lib
+    lib.tb_rescue_miss_reset()
+    sw_local.ksw_local.launches = 0
+    k1_first, k1_log, t = [], [], {}
+
+    def run():
+        for name, fn in (("SE", lambda: aln64.align_se(se, id0=BATCH)),
+                         ("PE", lambda: aln64.align_pe(pe, id0=PE_PAIRS))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t[name] = (fn(), time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    _, k1 = count_k1(run, k1_log, k1_first)
+    k2 = sw_local.ksw_local.launches
+    misses = lib.tb_rescue_miss_count()
+    first_diff(t["SE"][0], sam32, "int64 SE SAM against the int32 aligner's")
+    first_diff(t["SE"][0], aln.oracle.align_se(se, aln.opt, id0=BATCH),
+               "int64 SE SAM against the oracle")
+    first_diff(t["PE"][0], pe32, "int64 PE SAM against the int32 aligner's")
+    first_diff(t["PE"][0], aln.oracle.align_pe(pe, aln.opt,
+                                               id0=PE_PAIRS)[0],
+               "int64 PE SAM against Oracle.align_pe")
+    print(f"int64: index and LUT widened to {aln64.didx.pos_dtype}; SE "
+          f"{se.n} x {READ_LEN} bp ({t['SE'][1]:.2f} s; int32 "
+          f"{t32['SE'][1]:.2f} s) and PE {pe.n // 2} pairs ({t['PE'][1]:.2f}"
+          f" s; int32 {t32['PE'][1]:.2f} s) SAM byte-equal to the int32 "
+          f"aligner's and to the oracle's; rescue tasks "
+          f"{aln64.stats.get('rescue_tasks', 0)}, results missing {misses}; "
+          f"K1 launches {k1}, K2 launches {k2} [{card}]", flush=True)
+    if misses or k1 <= 0 or k2 <= 0:
+        raise AssertionError(f"int64: {misses} rescue results missing, K1 "
+                             f"launched {k1} and K2 {k2} times")
+    print_k1_shapes("int64", k1_log, "the SE and PE batch", card)
+    print(f"phase 14 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return dict(first=k1_first[0], k1=k1, k2=k2)
+
+
+def start_scale_prepare():
+    """Build phase 15's 64 Mbp genome, index and LUT caches in a process
+    of their own (host work only), so that the build overlaps the phases
+    that run before it."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpubwa_torch.tools.scale_bench",
+         str(SCALE_READS), str(SCALE_MBP), "--prepare"], cwd=str(REPO),
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def tier2_measure(aln, batch, card: str):
+    """F7's number on a batch where tier 2 fires: the tier-2 call
+    (dispatch and merge) alone. The stage split beside it times the
+    tiers, the finish and the whole batch."""
+    import torch
+    buf = aln.worker1_packed(batch.seqs, batch.lens).cpu().numpy()
+    n, ovf, l_rep, flat = aln._unpack_host(buf, batch.n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t2 = aln._tier2_dispatch(batch, ovf)
+    if t2 is None:
+        raise AssertionError("tier 2 does not fire on this batch")
+    aln._tier2_merge(batch, n, ovf, l_rep, flat, t2)
+    t_t2 = time.perf_counter() - t0
+    print(f"tier 2: {len(t2[0])} of {batch.n} reads re-run, the tier-2 "
+          f"call alone {t_t2 * 1e3:.1f} ms [{card}]", flush=True)
+
+
+def gated_batch(aln, batches):
+    """A batch on which tier 2 fires: every read that overflows tier 1 in
+    the given batches, each followed by seven clean reads, so that the
+    overflow reads are an eighth of the batch, above the gate's
+    sixteenth."""
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.utils import dna
+    ovf_recs, clean = [], []
+    for b in batches:
+        buf = aln.worker1_packed(b.seqs, b.lens).cpu().numpy()
+        ovf = aln._unpack_host(buf, b.n)[1]
+        for i in range(b.n):
+            rec = fastx.FastxRecord(b.names[i],
+                                    dna.decode(b.seqs[i][:b.lens[i]]))
+            (ovf_recs if ovf[i] else clean).append(rec)
+    recs = []
+    for k, r in enumerate(ovf_recs):
+        recs.append(r)
+        recs += clean[7 * k:7 * k + 7]
+    return fastx.batch_reads(recs, max_len=READ_LEN)
+
+
+def scale_phase(card: str, prep=None) -> dict:
+    """Phase 15: the 64 Mbp genome (chr20 size, BASELINE config 3) through
+    tools/scale_bench: the genome, index and LUT from their caches (built
+    by ``prep``, a running --prepare process, or here); 3 batches of 4096
+    SE reads, one to warm up and two timed and streamed, every line
+    byte-equal to the oracle; the PE row (1024 pairs, byte-equal to
+    Oracle.align_pe, no rescue result missing); the tier-2 call's time
+    and a stage split on a batch where tier 2 fires, with tier 2
+    forced by a batch built for it when no timed batch opens its gate; K1
+    and K2 recorded on their first calls."""
+    from tpubwa_torch.ops import sw_local
+    from tpubwa_torch.pair import rescue
+    from tpubwa_torch.tools import scale_bench as sb
+    t_phase = time.time()
+    costs = {}
+    if prep is not None:
+        out, err = prep.communicate(timeout=900)
+        if prep.returncode != 0:
+            raise AssertionError(f"the 64 Mbp --prepare process exited "
+                                 f"{prep.returncode}:\n{err[-3000:]}")
+        costs.update(json.loads(out.strip().splitlines()[-1])["costs"])
+        print(f"scale: the --prepare process built the caches "
+              f"({costs}) and ended {time.time() - t_phase:.1f} s into "
+              f"phase 15 [{card}]", flush=True)
+    g, idx = sb.prepare(SCALE_MBP, costs)
+    aln = sb.make_aligner(idx, SCALE_MBP, costs, "cuda")
+    dbytes = sb.device_bytes(aln)
+    print(f"scale: {SCALE_MBP} Mbp genome (text {2 * idx.l_pac}, "
+          f"{aln.didx.pos_dtype}), costs {costs}; device bytes: index "
+          f"{dbytes['index']}, LUT {dbytes['lut']} [{card}]", flush=True)
+    k1_first, k1_log = [], []
+    (se, batches), _ = count_k1(lambda: sb.se_row(
+        aln, g, SCALE_READS, SCALE_MBP, costs), k1_log, k1_first)
+    print(f"scale SE: {json.dumps(se)} [{card}]", flush=True)
+    print_k1_shapes("scale", k1_log, f"the warm-up and the "
+                    f"{len(batches)} timed batches", card)
+    if se["parity_mismatches"] or se["parity_lines_checked"] < SCALE_READS:
+        raise AssertionError(f"scale SE: {se['parity_mismatches']} of "
+                             f"{se['parity_lines_checked']} lines differ "
+                             "from the oracle")
+    if se["k1_launches"] <= 0:
+        raise AssertionError("the scale SE path launched K1 no time")
+    opened = {t["first_read"] for t in se["tier_batches"] if t["tier2"]}
+    fired = [i for i, b in enumerate(batches) if b.names[0] in opened]
+    if fired:
+        b, id0 = batches[fired[0]], fired[0] * sb.BATCH
+        tier2_measure(aln, b, card)
+        stages(aln, b, id0, card, "scale stage")
+    else:
+        gb = gated_batch(aln, batches)
+        aln.TIER2_MIN = 1
+        aln.stats = {"reads": 0, "fallback_reads": 0}
+        sam = aln.align_se(gb, id0=0)
+        first_diff(sam, aln.oracle.align_se(gb, aln.opt, id0=0),
+                   "the tier-2 batch against the oracle")
+        rows = aln.stats.get("tier2_rows", 0)
+        print(f"scale: tier 2 did not fire on the timed batches; a batch "
+              f"of {gb.n} reads built from their "
+              f"{aln.stats.get('tier1_ovf', 0)} overflow reads ran {rows} "
+              f"rows on tier 2, SAM byte-equal to the oracle [{card}]",
+              flush=True)
+        if not rows:
+            raise AssertionError("tier 2 ran on the card no time")
+        tier2_measure(aln, gb, card)
+        del aln.TIER2_MIN
+    # the PE row, K2's first forward call recorded and the forward
+    # launches of each rescue call counted (the timed batch's is the last)
+    k2_first, k2_fwd = {}, []
+    real = rescue.ksw_local
+
+    def recorder(*args, want_sub, **kw):
+        if want_sub not in k2_first:
+            k2_first[want_sub] = tuple(a.clone() for a in args)
+        before = sw_local.ksw_local.launches
+        r = real(*args, want_sub=want_sub, **kw)
+        if want_sub:
+            k2_fwd.append(sw_local.ksw_local.launches - before)
+        return r
+    rescue.ksw_local = recorder
+    try:
+        pe = sb.pe_row(aln, g, SCALE_MBP)
+    finally:
+        rescue.ksw_local = real
+    print(f"scale PE: {json.dumps(pe)} [{card}]", flush=True)
+    if pe["parity_mismatches"] or pe["rescue_results_missing"]:
+        raise AssertionError(f"scale PE: {pe['parity_mismatches']} lines "
+                             f"differ from Oracle.align_pe, "
+                             f"{pe['rescue_results_missing']} rescue "
+                             "results missing")
+    if pe["k1_launches"] <= 0 or pe["k2_launches"] <= 0 or \
+            not pe["rescue_tasks"] or not k2_fwd[-1]:
+        raise AssertionError("the scale PE row's timed batch launched K1 or "
+                             "K2 no time")
+    print(f"phase 15 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return dict(first=k1_first[0], k1=se["k1_launches"],
+                k2_first=k2_first[True], k2=k2_fwd[-1], se=se, pe=pe)
+
+
+def new_path_entries(longr, i64, scale, card: str) -> list:
+    """Phase 6 for this slice's paths: K1 on the first call of the long,
+    int64 and 64 Mbp paths and K2 on the 64 Mbp PE row's first forward
+    call, each held to its plain version and timed beside its bound."""
+    out = []
+    for name, path, args, n_l in (
+            ("ksw_extend_long", "SE 250 bp and mixed 76-250 bp (phase 13)",
+             longr["first"], longr["k1"]),
+            ("ksw_extend_int64", "SE + PE, int64 positions (phase 14)",
+             i64["first"], i64["k1"]),
+            ("ksw_extend_scale", f"SE 100 bp, {SCALE_MBP} Mbp (phase 15)",
+             scale["first"], scale["k1"])):
+        r = k1_measure(args, generic=True)
+        print(f"K1 {name} first call N={args[0].shape[0]} "
+              f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
+              f"{r['max_abs_err']} (tolerance 0) kernel {r['ms']:.4f} ms, "
+              f"generic instance {r['generic_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}: {r['cells']} band cells, {r['bytes']} "
+              f"bytes); {n_l} launches on the path [{card}]", flush=True)
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"K1 differs from ksw_extend_ref on "
+                                 f"{name}'s inputs")
+        out.append((name, path, "ksw_extend.cu", 86, n_l, r))
+    args = scale["k2_first"]
+    m = k2_measure(args, True, generic=True)
+    print(f"K2 ksw_local_scale first forward call N={args[0].shape[0]} "
+          f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
+          f"{m['max_abs_err']} (tolerance 0) kernel {m['ms']:.4f} ms, "
+          f"generic instance {m['generic_ms']:.4f} ms, plain "
+          f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms "
+          f"({m['bound_by']}: {m['cells']} cells, {m['bytes']} bytes); "
+          f"{scale['k2']} forward launches on the path [{card}]",
+          flush=True)
+    if m["max_abs_err"] != 0:
+        raise AssertionError("K2 differs from ksw_local_ref on the 64 Mbp "
+                             "PE row's inputs")
+    out.append(("ksw_local_scale", f"PE rescue, forward pass, {SCALE_MBP} "
+                "Mbp (phase 15)", "ksw_local.cu", 231, scale["k2"], m))
+    return out
+
+
+def kernel_entry(name, path, src, line, n_l, sweep_err, m) -> dict:
+    """One entry of the {"kernels": [...]} line."""
+    return {"name": name, "path": path, "route": "cuda",
+            "source": f"tpubwa_torch/csrc/{src}",
+            "replaces": f"tpubwa/ops/sw_pallas.py:{line}",
+            "launches": n_l,
+            "max_abs_err": max(sweep_err, m["max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "generic_ms": m["generic_ms"]}
+
+
+def timed_phase(label: str, fn, *args):
+    """Run a phase and print its seconds."""
+    t0 = time.time()
+    out = fn(*args)
+    print(f"phase {label}: {time.time() - t0:.1f} s", flush=True)
+    return out
+
+
+def beside_build(prep, t_prep: float):
+    """timed_phase for the phases that run while the 64 Mbp build process
+    ``prep`` may still run: after each, whether the build still ran, so
+    that the times taken beside it are known."""
+    def run(label: str, fn, *args):
+        out = timed_phase(label, fn, *args)
+        state = ("still running" if prep.poll() is None
+                 else f"ended (exit {prep.returncode})")
+        print(f"64 Mbp build process: {state} at the end of phase {label}, "
+              f"{time.time() - t_prep:.1f} s after its start", flush=True)
+        return out
+    return run
+
+
+def stop(proc):
+    """End a process this script started, if it still runs."""
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
 def main() -> int:
+    t_call = time.time()
     try:
         import torch
     except ImportError:
@@ -1595,7 +2057,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     card = card_line()
     print(f"card: {card}", flush=True)
-    build()
+    timed_phase("1 (build)", build)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if sys.argv[1:] == ["slice"]:
@@ -1608,23 +2070,53 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phases 7-12 only"}))
         return 0
-    worst = parity(card)
-    worst2 = parity_k2(card)
-    row_latency(card)
+    if sys.argv[1:] == ["scale"]:
+        prep = start_scale_prepare()
+        phase = beside_build(prep, time.time())
+        try:
+            aln = phase("13 set-up (4.6 Mbp index and LUT)", make_aligner)
+            longr = phase("13 (long)", long_phase, aln, card)
+            i64 = phase("14 (int64)", int64_phase, aln, card)
+            scale = timed_phase("15 (scale)", scale_phase, card, prep)
+        finally:
+            stop(prep)
+        kernels = [kernel_entry(*e[:5], 0, e[5])
+                   for e in new_path_entries(longr, i64, scale, card)]
+        print(json.dumps({"kernels": kernels}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phases 13-15 only"}))
+        return 0
+    worst = timed_phase("2 (K1 parity)", parity, card)
+    worst2 = timed_phase("2 (K2 parity)", parity_k2, card)
+    timed_phase("2 (row latency)", row_latency, card)
     if sys.argv[1:] == ["kernels"]:
         print(f"{card}")
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build, parity and row latency only"}))
         return 0
-    aln, k1_args, launches, rps = e2e(card)
-    k1_pe_args, k2_fwd, k2_rev, pe_k1, pe_k2, pe_rps = pe_e2e(aln, card)
-    t_new = time.time()
-    cli_res = cli_phases(aln, card)
-    multihost_phase(aln, card)
-    anc = anchor_phase(aln, card)
-    dist_phase(aln, card)
-    print(f"phases 7-12 (CLI, shards, multihost, anchor, dist) took "
-          f"{time.time() - t_new:.1f} s", flush=True)
+    aln, k1_args, launches, rps = timed_phase("3-4 (e2e SE, stages)", e2e,
+                                              card)
+    k1_pe_args, k2_fwd, k2_rev, pe_k1, pe_k2, pe_rps = timed_phase(
+        "5 (e2e PE)", pe_e2e, aln, card)
+    # the 64 Mbp caches build on the host while phases 7-14 run
+    prep = start_scale_prepare()
+    phase = beside_build(prep, time.time())
+    try:
+        t_new = time.time()
+        cli_res = phase("7-9 (CLI)", cli_phases, aln, card)
+        phase("10 (multihost)", multihost_phase, aln, card)
+        anc = phase("11 (anchor)", anchor_phase, aln, card)
+        phase("12 (dist)", dist_phase, aln, card)
+        print(f"phases 7-12 (CLI, shards, multihost, anchor, dist) took "
+              f"{time.time() - t_new:.1f} s", flush=True)
+        longr = phase("13 (long)", long_phase, aln, card)
+        i64 = phase("14 (int64)", int64_phase, aln, card)
+        scale = timed_phase("15 (scale)", scale_phase, card, prep)
+    finally:
+        stop(prep)
+    t6 = time.time()
     r1 = {}
     for path, args, n_l in (("SE", k1_args, launches),
                             ("PE", k1_pe_args, pe_k1)):
@@ -1655,35 +2147,35 @@ def main() -> int:
         if m["max_abs_err"] != 0:
             raise AssertionError("K2 differs from ksw_local_ref on the "
                                  "main-path inputs")
-
-    def entry(name, path, src, line, n_l, sweep_err, m):
-        return {"name": name, "path": path, "route": "cuda",
-                "source": f"tpubwa_torch/csrc/{src}",
-                "replaces": f"tpubwa/ops/sw_pallas.py:{line}",
-                "launches": n_l,
-                "max_abs_err": max(sweep_err, m["max_abs_err"]),
-                "ms": m["ms"], "plain_ms": m["plain_ms"],
-                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": None, "generic_ms": m["generic_ms"]}
-    # one entry per kernel and path: K1 on the SE path and on the PE path
-    # (other shapes, its own launch count), K2's two template instances
+    new = new_path_entries(longr, i64, scale, card)
+    print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
+    # one entry per kernel and path: K1 on the SE and the PE path (other
+    # shapes, its own launch count), K2's two template instances, then
+    # this slice's paths: K1 on the long, int64 and 64 Mbp paths, K2 on
+    # the 64 Mbp PE row
     kernels = [
-        entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches, worst,
-              r1["SE"]),
-        entry("ksw_extend_pe", "PE", "ksw_extend.cu", 86, pe_k1, worst,
-              r1["PE"]),
-        entry("ksw_local", "PE, forward pass (want_sub)", "ksw_local.cu",
-              231, pe_k2[True], worst2, r2[True]),
-        entry("ksw_local_rev", "PE, reverse pass", "ksw_local.cu", 231,
-              pe_k2[False], worst2, r2[False]),
-    ]
+        kernel_entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches,
+                     worst, r1["SE"]),
+        kernel_entry("ksw_extend_pe", "PE", "ksw_extend.cu", 86, pe_k1,
+                     worst, r1["PE"]),
+        kernel_entry("ksw_local", "PE, forward pass (want_sub)",
+                     "ksw_local.cu", 231, pe_k2[True], worst2, r2[True]),
+        kernel_entry("ksw_local_rev", "PE, reverse pass", "ksw_local.cu",
+                     231, pe_k2[False], worst2, r2[False]),
+    ] + [kernel_entry(name, path, src, line, n_l,
+                      worst if src == "ksw_extend.cu" else worst2, m)
+         for name, path, src, line, n_l, m in new]
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
     print(f"e2e reads/s: SE {rps:.1f}, PE {pe_rps:.1f}; CLI: "
           f"{cli_res['se']['line'].split('] ')[1]} (SE), "
           f"{cli_res['pe']['line'].split('] ')[1]} (PE); anchor seed stage "
           f"{anc['t_anchor'] * 1e3:.1f} ms against LUT "
-          f"{anc['t_lut'] * 1e3:.1f} ms")
+          f"{anc['t_lut'] * 1e3:.1f} ms; {SCALE_MBP} Mbp: SE "
+          f"{scale['se']['value']} reads/s, PE {scale['pe']['value']} "
+          f"reads/s, fallback {scale['se']['fallback_pct']}% (SE), "
+          f"{scale['pe']['pe_fallback_pct']}% (PE)")
+    print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -169,6 +169,26 @@ def test_get_base_equals_tpubwa(world):
         assert tidx.get_base(int(pos)) == jidx.get_base(int(pos))
 
 
+def test_pac_base_and_pos2rid_equal_tpubwa(world):
+    """The two host methods on the two-contig index: pac_base at every
+    forward position (the reverse-strand half of the text reads the same
+    bytes at its forward mirror, as get_base shows), pos2rid at both ends
+    of each contig, on the reverse-strand half (-1, as past the last
+    contig) and at random positions."""
+    jidx, tidx = world
+    rng = np.random.default_rng(12)
+    L = jidx.l_pac
+    assert [tidx.pac_base(p) for p in range(L)] == \
+        [int(jidx.pac_base(p)) for p in range(L)]
+    for q in (L, L + 4999, 2 * L - 1):
+        assert 3 - tidx.pac_base(2 * L - 1 - q) == jidx.get_base(q)
+    edges = [0, 1, 4999, 5000, 5001, L - 1]
+    for pos in [*edges, L, L + 1, 2 * L - 1, *rng.integers(0, 2 * L, 300)]:
+        assert tidx.pos2rid(int(pos)) == jidx.pos2rid(int(pos))
+    assert [tidx.pos2rid(p) for p in (0, 4999, 5000, L - 1, L)] == \
+        [0, 0, 1, 1, -1]
+
+
 def test_unpack_2bit_equals_tpubwa():
     from tpubwa_torch.utils import dna as tdna
     rng = np.random.default_rng(12)

@@ -34,7 +34,6 @@ from ..ops.window import (query_window_asc, query_window_desc,
 from ..seed.lut import _compact_rows
 
 POS31 = 2**31 - 1
-MAX_BAND_TRY = 2           # [bwa: bwamem.c :: MAX_BAND_TRY]
 _I32 = torch.int32
 
 
@@ -51,6 +50,7 @@ class ExtendConfig:
     e_ins: int = 1
     pen_clip5: int = 5
     pen_clip3: int = 5
+    max_band_try: int = 2     # [bwa: bwamem.c :: MAX_BAND_TRY]
     tail_rows: int = 8        # reads with >1 extension round: B // tail_rows
     full_rounds: int = 1      # full-width extension rounds before the tail
     #                           (2 on repeat-rich large genomes, where most
@@ -59,8 +59,8 @@ class ExtendConfig:
     # precomputed in two flat kernel batches and the exact visit order is
     # replayed kernel-free; the round engine remains for the big-caps tier
     task_parallel: bool = True
-    cand_mult: int = 1        # candidate task budget B*cand_mult; >1 on
-    #                           repeat-rich large genomes
+    cand_rows: int = 1        # candidate task budget: B*cand_mult // cand_rows
+    cand_mult: int = 1        # >1 on repeat-rich large genomes
     retry_rows: int = 8       # compacted band-retry sub-batch: B // retry_rows
 
 
@@ -251,7 +251,7 @@ def _run_try(cfg: ExtendConfig, q, ql, t, tl, h, eb: int, act, prev0):
                                dim=1)
         return torch.stack(_kernel_call(cfg, q[rows], ql[rows], t[rows],
                                         tl[rows], h[rows], eb, aw, am), dim=1)
-    for i in range(1, MAX_BAND_TRY):
+    for i in range(1, cfg.max_band_try):
         aw1 = cfg.w << i
         retry = act & (sc != prev_sc) & (moff >= (aw0 >> 1) + (aw0 >> 2))
         if cfg.retry_rows > 1 and B >= 256:
@@ -451,7 +451,7 @@ def _extend_taskpar(didx: DeviceIndex, cfg: ExtendConfig, ctx: dict, st):
     cand = stored & (seed_rank < C) & (~around0 | rescue0) & ~first_oh
 
     # ---- phase 3: flat candidate task batch ----
-    K = max(B * cfg.cand_mult, 64)
+    K = max(B * cfg.cand_mult // max(cfg.cand_rows, 1), 64)
     flat_cand = cand.reshape(-1)
     cs = torch.cumsum(flat_cand.to(_I32), 0, dtype=_I32)
     tpos = cs - 1

@@ -79,6 +79,12 @@ class FMIndex:
         """Base of the *bidirectional* text at pos in [0, 2*l_pac)."""
         return int(self.get_seq(pos, pos + 1)[0])
 
+    def pac_base(self, pos: int) -> int:
+        """Base of the forward genome at pos in [0, l_pac), from the 2-bit
+        packed ``pac`` (base j in bits 6 - 2*(j % 4) of byte j // 4)."""
+        byte = self.pac[pos >> 2]
+        return (byte >> ((~pos & 3) << 1)) & 3
+
     def get_seq(self, beg: int, end: int) -> np.ndarray:
         """Text slice [beg, end) of the bidirectional genome, vectorized."""
         beg, end = int(beg), int(end)
@@ -88,6 +94,15 @@ class FMIndex:
         byte = self.pac[p >> 2]
         base = (byte >> (((~p & 3) << 1)).astype(np.uint8)) & 3
         return np.where(fwd, base, 3 - base).astype(np.uint8)
+
+    def pos2rid(self, pos: int) -> int:
+        """Forward-coordinate position -> sequence id, -1 past the last
+        sequence [bwa: bntseq.c :: bns_pos2rid]."""
+        offs = np.array([a.offset for a in self.anns], dtype=np.int64)
+        ends = offs + np.array([a.length for a in self.anns], dtype=np.int64)
+        if pos >= ends[-1]:
+            return -1
+        return int(np.searchsorted(ends, pos, side="right"))
 
     # ---- persistence ----
     def save(self, path: str | Path) -> None:

@@ -34,17 +34,19 @@ def _rev_prefix(rows: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
     return shift_left(rows.flip(1), W - 1 - end, W, 4)
 
 
-def ksw_align_batch(query, qlen, target, tlen, minsc, valid, *,
+def ksw_align_batch(query, qlen, target, tlen, minsc, valid,
                     o_del: int = 6, e_del: int = 1, o_ins: int = 6,
-                    e_ins: int = 1, a: int = 1,
-                    b: int = 4) -> torch.Tensor:
+                    e_ins: int = 1, a_sc: int = 1,
+                    b_sc: int = 4) -> torch.Tensor:
     """Batched [bwa: ksw.c :: ksw_align2(XSTART|XSUBO)].
 
     query: (N, Q) int codes; target: (N, T); qlen/tlen/minsc/valid: (N,).
+    a_sc / b_sc are the match score and mismatch penalty.
     Returns (N, 7) int32: score, tb, te, qb, qe, score2, te2 (tb/qb = -1
     when score < minsc, matching the scalar no-start-extraction path).
     """
-    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins, a=a, b=b)
+    kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins, a=a_sc,
+              b=b_sc)
     query = query.to(_I32).contiguous()
     target = target.to(_I32).contiguous()
     qlen, tlen, minsc = qlen.to(_I32), tlen.to(_I32), minsc.to(_I32)
@@ -131,7 +133,7 @@ def dispatch_rescue_tasks(didx, batch_seqs, batch_lens, tasks, id0, opt):
     def up(a, dtype=_I32):
         return torch.as_tensor(a).to(dev).to(dtype)
     kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
-              e_ins=opt.e_ins, a=opt.a, b=opt.b)
+              e_ins=opt.e_ins, a_sc=opt.a, b_sc=opt.b)
     return _rescue_batch_device(
         didx, torch.as_tensor(batch_seqs).to(dev),
         torch.as_tensor(batch_lens).to(dev), up(mate_row), up(is_rev),

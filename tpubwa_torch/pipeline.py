@@ -322,17 +322,25 @@ class Aligner:
         rows = np.flatnonzero(ovf)
         if len(rows) < self.TIER3_MIN:
             return n, ovf, l_rep, flat
+        self.stats["tier3_rows"] = self.stats.get("tier3_rows", 0) + len(rows)
         return self._tier2_merge(batch, n, ovf, l_rep, flat, self._rerun(
             self._packed_big3_fn(), batch, rows, self.TIER3_ROWS))
 
     def _tier2_dispatch(self, batch: ReadBatch, ovf):
         """Issue the big-caps device call for tier-1-overflow reads, or
         return None when too few reads overflowed (the host oracle is
-        cheaper for a handful)."""
+        cheaper for a handful). Each call is logged in
+        ``stats["tier_batches"]``: the batch's first read, its overflow
+        count and whether tier 2 fired."""
         rows = np.flatnonzero(ovf)
         self.stats["tier1_ovf"] = self.stats.get("tier1_ovf", 0) + len(rows)
-        if len(rows) < max(self.TIER2_MIN, batch.n // 16):
+        fired = len(rows) >= max(self.TIER2_MIN, batch.n // 16)
+        self.stats.setdefault("tier_batches", []).append(
+            {"first_read": batch.names[0], "tier1_ovf": len(rows),
+             "tier2": fired})
+        if not fired:
             return None
+        self.stats["tier2_rows"] = self.stats.get("tier2_rows", 0) + len(rows)
         return self._rerun(self._packed_big_fn(), batch, rows,
                            self.TIER2_ROWS)
 
@@ -537,7 +545,7 @@ class Aligner:
         buf = self.worker1_packed(batch.seqs, batch.lens).cpu().numpy()
         return self._finish_pe_buf(batch, buf, id0)
 
-    def align_pe_stream(self, batches, id0: int = 0):
+    def align_pe_stream(self, batches, id0: int = 0, depth: int = 2):
         """Pipelined PE alignment. Dispatch ORDER is the whole game: the
         device queue is FIFO, so batch i's small PE calls (histogram,
         rescue kernel) must be enqueued BEFORE batch i+1's worker1 — else
@@ -546,7 +554,9 @@ class Aligner:
         gen, rescue DISPATCH) -> enqueue next worker1 -> stage B (rescue
         download + native pair/SAM, overlapped with the next batch's
         device time). Yields SAM text per batch; items may be (ReadBatch,
-        explicit_id0) pairs, id0 counting pairs."""
+        explicit_id0) pairs, id0 counting pairs. One batch is in flight
+        whatever ``depth`` says; it is accepted, and not used, as in the
+        reference."""
         prev: tuple[ReadBatch, torch.Tensor, int] | None = None
         n = id0
         for item in batches:

@@ -22,9 +22,10 @@ class PhaseTimer:
         self.counts: dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
-    def phase(self, name: str):
+    def phase(self, name: str, sync=None):
         """Time a phase; call .sync(x) on the phase's output inside the
-        block so queued device work is counted in it."""
+        block so queued device work is counted in it. ``sync`` is accepted
+        for callers of the reference's signature and not used."""
         t0 = time.perf_counter()
         try:
             yield self
