@@ -113,9 +113,32 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                call's time and a stage split of that batch (tiers, finish,
                the whole batch); the PE row (1024 pairs, byte-equal to
                Oracle.align_pe, no rescue result missing).
-Phases 7-15 run between phases 5 and 6, each from counts of its own;
-phase 6 also holds K1 on the first call of phases 13, 14 and 15 and K2 on
-phase 15's first forward call to their plain versions (4 more entries).
+ 16. diag    — the overflow diagnostics (tpubwa_torch/tools/diag_caps.py,
+               tune_budgets.py, diag_scale.py, diag_tier2.py,
+               classify_overflow.py) on the card: at 4.6 Mbp diag_caps on
+               the bench batch of 4096 at the default caps and
+               tune_budgets' seven seeding-budget variants; at 64 Mbp, on
+               phase 15's aligner, diag_scale and diag_tier2 on 4096
+               reads, classify_overflow on the first 2048 (SMEMs and
+               seeds) and on every 16th read (also chains and regions),
+               the split of the reads flagged after seeding into those
+               whose oracle counts exceed a cap and those only the dense
+               budgets flag (tier 1 and tier 2, over the whole batch, and
+               by quarter of the batch), worker1 with each dense budget
+               relaxed 2x (tune_budgets, one rep), and Oracle.align_se's
+               ms a read (one thread, at most 512 reads, evenly spaced)
+               on the reads tier 1 flagged, on those
+               tier 2 left (tier 3's input), on those the tiers left and
+               on clean reads, beside the tier-2 and tier-3 calls' times;
+               fails if a cumulative stage count decreases, if a read the
+               stages flag is not flagged in worker1_packed's buffer, if
+               tune_budgets' base variant flags another number of reads
+               than diag_caps on the same batch, or if a tool imported JAX
+               or the reference package.
+Phases 7-16 run between phases 5 and 6, each from counts of its own;
+phase 6 also holds K1 on the first call of phases 13, 14, 15 and 16 and K2
+on phase 15's first forward call to their plain versions (5 more
+entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
 Every phase prints its seconds, and the call its whole seconds.
@@ -125,7 +148,9 @@ Run from the repository root: python3 chip_smoke.py
 (python3 chip_smoke.py kernels stops after phase 2: build, sweeps and row
 latency only, for work on the kernels; python3 chip_smoke.py slice runs
 the build and phases 7-12 only; python3 chip_smoke.py scale the build and
-phases 13-15, with the kernels line of their 4 entries.)
+phases 13-15, with the kernels line of their 4 entries; python3
+chip_smoke.py diag the build, the 64 Mbp --prepare and phase 16, with the
+kernels line of its one entry.)
 """
 import json
 import os
@@ -636,27 +661,11 @@ def print_k1_shapes(label: str, log: list, what: str, card: str,
               + (f", {ms:.3f} ms summed" if kernel_ms else ""), flush=True)
 
 
-def get_index():
-    from tpubwa_torch.index.builder import FMIndex, build_index
-    from tpubwa_torch.utils import dna, genome
-    cache = REPO / "build" / "tpubwa_torch" / f"smoke_index_{GENOME_LEN}.npz"
-    if cache.exists():
-        return FMIndex.load(cache)
-    g = genome.synthetic_genome(GENOME_LEN, seed=2024,
-                                profile=genome.BACTERIAL)
-    idx = build_index([("U00096_synth", dna.decode(g))])
-    cache.parent.mkdir(parents=True, exist_ok=True)
-    idx.save(cache)
-    return idx
-
-
 def make_aligner():
-    """The aligner of the full-size phases: the cached 4.6 Mbp index and
-    its LUT cache, on the card."""
-    from tpubwa_torch.opts import MemOptions
-    from tpubwa_torch.pipeline import Aligner
-    return Aligner(get_index(), MemOptions(), device="cuda",
-                   lut_cache=lut_cache())
+    """The aligner of the full-size phases: the 4.6 Mbp bench world's
+    cached index and LUT (tools/bench_world.py), on the card."""
+    from tpubwa_torch.tools import bench_world
+    return bench_world.make_aligner("cuda")
 
 
 def e2e(card: str):
@@ -1014,7 +1023,8 @@ def smoke_dir() -> Path:
 
 
 def lut_cache() -> Path:
-    return REPO / "build" / "tpubwa_torch" / f"smoke_lut_{GENOME_LEN}.npz"
+    from tpubwa_torch.tools import bench_world
+    return bench_world.lut_path()
 
 
 def cli_env(**extra) -> dict:
@@ -1858,6 +1868,26 @@ def gated_batch(aln, batches):
     return fastx.batch_reads(recs, max_len=READ_LEN)
 
 
+def scale_world(card: str, prep, phase: str):
+    """The 64 Mbp genome and its aligner on the card, the caches built by
+    ``prep`` (a running --prepare process, waited for here) or here;
+    returns (genome, aligner, costs)."""
+    from tpubwa_torch.tools import scale_bench as sb
+    t0 = time.time()
+    costs = {}
+    if prep is not None:
+        out, err = prep.communicate(timeout=900)
+        if prep.returncode != 0:
+            raise AssertionError(f"the 64 Mbp --prepare process exited "
+                                 f"{prep.returncode}:\n{err[-3000:]}")
+        costs.update(json.loads(out.strip().splitlines()[-1])["costs"])
+        print(f"scale: the --prepare process built the caches "
+              f"({costs}) and ended {time.time() - t0:.1f} s into "
+              f"phase {phase} [{card}]", flush=True)
+    g, idx = sb.prepare(SCALE_MBP, costs)
+    return g, sb.make_aligner(idx, SCALE_MBP, costs, "cuda"), costs
+
+
 def scale_phase(card: str, prep=None) -> dict:
     """Phase 15: the 64 Mbp genome (chr20 size, BASELINE config 3) through
     tools/scale_bench: the genome, index and LUT from their caches (built
@@ -1872,20 +1902,9 @@ def scale_phase(card: str, prep=None) -> dict:
     from tpubwa_torch.pair import rescue
     from tpubwa_torch.tools import scale_bench as sb
     t_phase = time.time()
-    costs = {}
-    if prep is not None:
-        out, err = prep.communicate(timeout=900)
-        if prep.returncode != 0:
-            raise AssertionError(f"the 64 Mbp --prepare process exited "
-                                 f"{prep.returncode}:\n{err[-3000:]}")
-        costs.update(json.loads(out.strip().splitlines()[-1])["costs"])
-        print(f"scale: the --prepare process built the caches "
-              f"({costs}) and ended {time.time() - t_phase:.1f} s into "
-              f"phase 15 [{card}]", flush=True)
-    g, idx = sb.prepare(SCALE_MBP, costs)
-    aln = sb.make_aligner(idx, SCALE_MBP, costs, "cuda")
+    g, aln, costs = scale_world(card, prep, "15")
     dbytes = sb.device_bytes(aln)
-    print(f"scale: {SCALE_MBP} Mbp genome (text {2 * idx.l_pac}, "
+    print(f"scale: {SCALE_MBP} Mbp genome (text {2 * aln.idx.l_pac}, "
           f"{aln.didx.pos_dtype}), costs {costs}; device bytes: index "
           f"{dbytes['index']}, LUT {dbytes['lut']} [{card}]", flush=True)
     k1_first, k1_log = [], []
@@ -1954,33 +1973,237 @@ def scale_phase(card: str, prep=None) -> dict:
     print(f"phase 15 took {time.time() - t_phase:.1f} s [{card}]",
           flush=True)
     return dict(first=k1_first[0], k1=se["k1_launches"],
-                k2_first=k2_first[True], k2=k2_fwd[-1], se=se, pe=pe)
+                k2_first=k2_first[True], k2=k2_fwd[-1], se=se, pe=pe,
+                aln=aln, g=g)
+
+
+CLASSIFY_FAST_READS = 2048   # phase 16: the oracle's counts, SMEMs + seeds
+CLASSIFY_FULL_READS = 256    # ... and with chains and regions
+ORACLE_SAMPLE = 512          # most reads the oracle's ms a read is taken on
+TUNE_REPS = 3                # tune_budgets: best of 3 steady worker1 calls
+# tune_budgets at 64 Mbp: each dense budget of the LUT walk relaxed 2x
+SCALE_VARIANTS = ({}, {"fm_dense": 8}, {"offdiag_dense": 2},
+                  {"fm_dense": 8, "offdiag_dense": 2})
+
+
+def check_cumulative(counts: dict, what: str):
+    """Fail unless each stage's cumulative overflow count is at least the
+    one before it (the dict is in stage order)."""
+    v = list(counts.values())
+    if any(b < a for a, b in zip(v, v[1:])):
+        raise AssertionError(f"{what}: a cumulative overflow count "
+                             f"decreases: {counts}")
+
+
+def no_reference_imported(what: str):
+    bad = sorted(m for m in sys.modules if m in ("jax", "tpubwa") or
+                 m.startswith(("jax.", "jaxlib", "tpubwa.")))
+    if bad:
+        raise AssertionError(f"{what} imported {bad[:8]}")
+
+
+def rows_batch(batch, rows):
+    """The reads ``rows`` of ``batch`` as a ReadBatch of their own."""
+    from tpubwa_torch.io.fastx import ReadBatch
+    return ReadBatch(seqs=batch.seqs[rows], lens=batch.lens[rows],
+                     names=[batch.names[i] for i in rows],
+                     quals=[batch.quals[i] for i in rows])
+
+
+def oracle_ms(aln, batch, rows) -> tuple:
+    """(reads, ms a read) of Oracle.align_se on one thread over at most
+    ORACLE_SAMPLE of ``rows``, evenly spaced."""
+    rows = rows[::-(-len(rows) // ORACLE_SAMPLE) or 1]
+    if not len(rows):
+        return 0, None
+    sub = rows_batch(batch, rows)
+    t0 = time.perf_counter()
+    aln.oracle.align_se(sub, aln.opt)
+    return len(rows), (time.perf_counter() - t0) * 1e3 / len(rows)
+
+
+def diag_bench(aln, card: str) -> dict:
+    """Phase 16 at 4.6 Mbp: diag_caps and tune_budgets' seven variants on
+    the bench batch of 4096 reads, at the default caps."""
+    from tpubwa_torch.tools import bench_world, diag_caps, tune_budgets
+    batch = bench_world.reads(aln.idx, BATCH)
+    caps = diag_caps.diag_caps(aln, batch)
+    diag_caps.report(caps)
+    print(f"diag_caps: {json.dumps(caps)} [{card}]", flush=True)
+    check_cumulative(caps["overflow"], "diag_caps")
+    tune = tune_budgets.tune_budgets(aln, batch, reps=TUNE_REPS)
+    for row in tune["variants"]:
+        print(f"tune_budgets {row['variant']:32s} w1={row['w1_ms']:7.1f} ms "
+              f"(first {row['first_ms']:.1f} ms) ovf={row['overflow']:5d}/"
+              f"{batch.n}", flush=True)
+    print(f"tune_budgets: {json.dumps(tune)} [{card}]", flush=True)
+    base = tune["variants"][0]
+    if base["variant"] != "base" or \
+            base["overflow"] != caps["overflow"]["extend"]:
+        raise AssertionError(f"tune_budgets' base variant flags "
+                             f"{base['overflow']} reads, diag_caps "
+                             f"{caps['overflow']['extend']} on the same "
+                             "batch")
+    return dict(caps=caps, tune=tune)
+
+
+def diag_scale_world(aln, g, card: str) -> dict:
+    """Phase 16 at 64 Mbp: diag_scale and diag_tier2 on 4096 reads,
+    classify_overflow on the first 2048 (fast) and every 16th read (full),
+    the split of seeding overflow into cap- and dense-budget-driven reads
+    at tier 1 and tier 2, worker1 with each dense budget relaxed, and the
+    oracle's ms a read on the reads tier 1 flagged, on tier 3's input and
+    on those the tiers left, beside the tiers' times."""
+    import numpy as np
+    from tpubwa_torch.tools import classify_overflow as co
+    from tpubwa_torch.tools import diag_caps, diag_scale, diag_tier2
+    from tpubwa_torch.tools import scale_bench as sb
+    from tpubwa_torch.tools import tune_budgets
+    batch = sb.se_batch(g, sb.BATCH)
+    ds = diag_scale.diag_scale(aln, batch)
+    diag_scale.report(ds)
+    print(f"diag_scale: {json.dumps(ds)} [{card}]", flush=True)
+    check_cumulative(ds["overflow"], "diag_scale")
+    if ds["stage_not_packed"]:
+        raise AssertionError(f"{ds['stage_not_packed']} reads the stages "
+                             "flag are not flagged in worker1_packed's "
+                             "buffer")
+    dt = diag_tier2.diag_tier2(aln, batch)
+    diag_tier2.report(dt)
+    print(f"diag_tier2: {json.dumps(dt)} [{card}]", flush=True)
+    for key in ("tier2_config", "script_config"):
+        if key in dt:
+            check_cumulative(dt[key]["overflow"], f"diag_tier2 {key}")
+    # per read: seeding overflow at tier 1, the packed buffer's overflow
+    f1 = diag_caps.stage_flags(aln, batch.seqs, batch.lens)
+    ovf1 = aln._unpack_host(aln.worker1_packed(
+        batch.seqs, batch.lens).cpu().numpy(), batch.n)[1]
+    if (f1["extend"] & ~ovf1).any():
+        raise AssertionError("a read the stages flag is not flagged in "
+                             "worker1_packed's buffer")
+    # the oracle's counts: SMEMs and seeds of every read (the classify line
+    # on the first 2048, as the reference script takes them), and with
+    # chains and regions of every 16th read
+    t0 = time.perf_counter()
+    fast = co.oracle_counts(aln.oracle, batch, aln.opt, True)
+    ms_fast = (time.perf_counter() - t0) * 1e3 / batch.n
+    stride = batch.n // CLASSIFY_FULL_READS
+    every = np.arange(0, batch.n, stride)
+    t0 = time.perf_counter()
+    full = co.oracle_counts(aln.oracle, rows_batch(batch, every), aln.opt,
+                            False)
+    ms_full = (time.perf_counter() - t0) * 1e3 / len(every)
+    for counts, is_fast, ms, what in (
+            (fast[:CLASSIFY_FAST_READS], True, ms_fast,
+             f"the first {CLASSIFY_FAST_READS} reads"),
+            (full, False, ms_full, f"every {stride}th read")):
+        r = {**co.classify(counts, SCALE_MBP), "fast": is_fast,
+             "oracle_count_ms_per_read": ms, "reads": what}
+        print(f"classify_overflow: {json.dumps(r)} [{card}]", flush=True)
+    # seeding overflow under tier 2's configuration, on the rows tier 2
+    # re-runs (the tier-1 overflow reads, padded as tier 2 pads them)
+    rows1 = np.flatnonzero(ovf1)
+    pad = (-len(rows1)) % aln.TIER2_ROWS
+    rsel = np.concatenate([rows1, np.repeat(rows1[-1:], pad)])
+    seeded2 = np.zeros(batch.n, bool)
+    seeded2[rows1] = diag_caps.stage_flags(
+        aln, batch.seqs[rsel], batch.lens[rsel],
+        aln._tier_configs(2)[:3])["seeding"][:len(rows1)]
+    on1 = np.zeros(batch.n, bool)
+    on1[rows1] = True
+    q = batch.n // 4
+    split = {"genome_mbp": SCALE_MBP, "reads": batch.n,
+             # the dense budgets are filled in read order: reads late in
+             # a batch overflow once a budget is spent
+             "seeding_by_quarter": [int(f1["seeding"][k * q:(k + 1) * q]
+                                        .sum()) for k in range(4)],
+             "tier1": co.split(f1["seeding"], fast, co.T1),
+             "tier2": co.split(seeded2[on1], fast[on1], co.T2),
+             "tier1_full": co.split(f1["seeding"][every], full, co.T1),
+             "tier2_full": co.split(seeded2[every][on1[every]],
+                                    full[on1[every]], co.T2)}
+    print(f"diag split at {SCALE_MBP} Mbp: {json.dumps(split)} [{card}]",
+          flush=True)
+    # which dense budget: worker1 with each relaxed (budgets are B*L //
+    # fm_dense and B*L // offdiag_dense lanes)
+    tune = tune_budgets.tune_budgets(aln, batch, SCALE_VARIANTS, reps=1)
+    for row in tune["variants"]:
+        print(f"tune_budgets {SCALE_MBP} Mbp {row['variant']:24s} "
+              f"w1={row['w1_ms']:7.1f} ms ovf={row['overflow']:5d}/"
+              f"{batch.n}", flush=True)
+    print(f"tune_budgets at {SCALE_MBP} Mbp: {json.dumps(tune)} [{card}]",
+          flush=True)
+    clean = np.flatnonzero(~ovf1)
+    orc = {}
+    for what, rows in (("tier1_overflow", rows1),
+                       ("after_tier2", np.asarray(dt["after_tier2_rows"])),
+                       ("left_by_tiers", np.asarray(dt["left_rows"])),
+                       ("clean", clean)):
+        n, ms = oracle_ms(aln, batch, rows)
+        orc[what] = {"reads": n, "of": len(rows), "ms_per_read": ms}
+    orc["tier2_call_ms"] = dt["steady"]["tier2_s"] * 1e3
+    orc["tier3_call_ms"] = dt["steady"]["tier3_s"] * 1e3
+    orc["tier2_rows"] = int(ovf1.sum()) if dt["tier2_fired"] else 0
+    orc["tier3_rows"] = dt["after_tier2"] \
+        if dt["after_tier2"] >= aln.TIER3_MIN else 0
+    print(f"diag oracle at {SCALE_MBP} Mbp (one thread): {json.dumps(orc)} "
+          f"[{card}]", flush=True)
+    return dict(scale=ds, tier2=dt, split=split, oracle=orc, tune=tune)
+
+
+def diag_phase(aln, aln64, g, card: str) -> dict:
+    """Phase 16: the overflow diagnostics (tools/diag_*.py,
+    classify_overflow.py, tune_budgets.py) at 4.6 and 64 Mbp, K1's
+    launches counted from 0 and its first call recorded."""
+    t_phase = time.time()
+    first, log = [], []
+    (bench, scale), k1 = count_k1(lambda: (
+        diag_bench(aln, card), diag_scale_world(aln64, g, card)), log, first)
+    no_reference_imported("phase 16's tools")
+    print(f"phase 16: K1 launched {k1} times [{card}]", flush=True)
+    if k1 <= 0:
+        raise AssertionError("phase 16 launched K1 no time")
+    print_k1_shapes("diag", log, "phase 16", card)
+    print(f"phase 16 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return dict(first=first[0], k1=k1, bench=bench, scale=scale)
+
+
+def k1_entry(name: str, path: str, args, n_l: int, card: str) -> tuple:
+    """K1 on a path's first call (``args``), held to its plain version and
+    timed beside its bound; ``n_l`` is the path's launch count."""
+    r = k1_measure(args, generic=True)
+    print(f"K1 {name} first call N={args[0].shape[0]} "
+          f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
+          f"{r['max_abs_err']} (tolerance 0) kernel {r['ms']:.4f} ms, "
+          f"generic instance {r['generic_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+          f"({r['bound_by']}: {r['cells']} band cells, {r['bytes']} "
+          f"bytes); {n_l} launches on the path [{card}]", flush=True)
+    if r["max_abs_err"] != 0:
+        raise AssertionError(f"K1 differs from ksw_extend_ref on {name}'s "
+                             "inputs")
+    return name, path, "ksw_extend.cu", 86, n_l, r
+
+
+def diag_entry(diag, card: str) -> tuple:
+    """Phase 6 for phase 16: K1 on its first call."""
+    return k1_entry("ksw_extend_diag", "overflow diagnostics, 4.6 and "
+                    f"{SCALE_MBP} Mbp (phase 16)", diag["first"], diag["k1"],
+                    card)
 
 
 def new_path_entries(longr, i64, scale, card: str) -> list:
     """Phase 6 for this slice's paths: K1 on the first call of the long,
     int64 and 64 Mbp paths and K2 on the 64 Mbp PE row's first forward
     call, each held to its plain version and timed beside its bound."""
-    out = []
-    for name, path, args, n_l in (
-            ("ksw_extend_long", "SE 250 bp and mixed 76-250 bp (phase 13)",
-             longr["first"], longr["k1"]),
-            ("ksw_extend_int64", "SE + PE, int64 positions (phase 14)",
-             i64["first"], i64["k1"]),
-            ("ksw_extend_scale", f"SE 100 bp, {SCALE_MBP} Mbp (phase 15)",
-             scale["first"], scale["k1"])):
-        r = k1_measure(args, generic=True)
-        print(f"K1 {name} first call N={args[0].shape[0]} "
-              f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
-              f"{r['max_abs_err']} (tolerance 0) kernel {r['ms']:.4f} ms, "
-              f"generic instance {r['generic_ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']}: {r['cells']} band cells, {r['bytes']} "
-              f"bytes); {n_l} launches on the path [{card}]", flush=True)
-        if r["max_abs_err"] != 0:
-            raise AssertionError(f"K1 differs from ksw_extend_ref on "
-                                 f"{name}'s inputs")
-        out.append((name, path, "ksw_extend.cu", 86, n_l, r))
+    out = [k1_entry(*e, card) for e in (
+        ("ksw_extend_long", "SE 250 bp and mixed 76-250 bp (phase 13)",
+         longr["first"], longr["k1"]),
+        ("ksw_extend_int64", "SE + PE, int64 positions (phase 14)",
+         i64["first"], i64["k1"]),
+        ("ksw_extend_scale", f"SE 100 bp, {SCALE_MBP} Mbp (phase 15)",
+         scale["first"], scale["k1"]))]
     args = scale["k2_first"]
     m = k2_measure(args, True, generic=True)
     print(f"K2 ksw_local_scale first forward call N={args[0].shape[0]} "
@@ -2070,6 +2293,23 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phases 7-12 only"}))
         return 0
+    if sys.argv[1:] == ["diag"]:
+        prep = start_scale_prepare()
+        phase = beside_build(prep, time.time())
+        try:
+            aln = phase("16 set-up (4.6 Mbp index and LUT)", make_aligner)
+            g, aln64, _ = timed_phase("16 set-up (64 Mbp world)",
+                                      scale_world, card, prep, "16")
+        finally:
+            stop(prep)
+        diag = timed_phase("16 (diag)", diag_phase, aln, aln64, g, card)
+        e = diag_entry(diag, card)
+        print(json.dumps({"kernels": [kernel_entry(*e[:5], 0, e[5])]}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phase 16 only"}))
+        return 0
     if sys.argv[1:] == ["scale"]:
         prep = start_scale_prepare()
         phase = beside_build(prep, time.time())
@@ -2116,6 +2356,8 @@ def main() -> int:
         scale = timed_phase("15 (scale)", scale_phase, card, prep)
     finally:
         stop(prep)
+    diag = timed_phase("16 (diag)", diag_phase, aln, scale["aln"],
+                       scale["g"], card)
     t6 = time.time()
     r1 = {}
     for path, args, n_l in (("SE", k1_args, launches),
@@ -2147,12 +2389,13 @@ def main() -> int:
         if m["max_abs_err"] != 0:
             raise AssertionError("K2 differs from ksw_local_ref on the "
                                  "main-path inputs")
-    new = new_path_entries(longr, i64, scale, card)
+    new = new_path_entries(longr, i64, scale, card) + \
+        [diag_entry(diag, card)]
     print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
     # one entry per kernel and path: K1 on the SE and the PE path (other
     # shapes, its own launch count), K2's two template instances, then
-    # this slice's paths: K1 on the long, int64 and 64 Mbp paths, K2 on
-    # the 64 Mbp PE row
+    # the later slices' paths: K1 on the long, int64 and 64 Mbp paths, K2
+    # on the 64 Mbp PE row, K1 in phase 16
     kernels = [
         kernel_entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches,
                      worst, r1["SE"]),
@@ -2174,7 +2417,8 @@ def main() -> int:
           f"{anc['t_lut'] * 1e3:.1f} ms; {SCALE_MBP} Mbp: SE "
           f"{scale['se']['value']} reads/s, PE {scale['pe']['value']} "
           f"reads/s, fallback {scale['se']['fallback_pct']}% (SE), "
-          f"{scale['pe']['pe_fallback_pct']}% (PE)")
+          f"{scale['pe']['pe_fallback_pct']}% (PE); phase 16: "
+          f"{json.dumps(diag['scale']['split'])}")
     print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": device}))
     return 0

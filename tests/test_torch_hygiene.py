@@ -24,7 +24,11 @@ def test_import_pulls_in_no_jax_and_no_tpubwa():
             "tpubwa_torch.io.sam, tpubwa_torch.dist.multihost, "
             "tpubwa_torch.seed.anchor, tpubwa_torch.seed.device, "
             "tpubwa_torch.index.fmquery, tpubwa_torch.utils.profiling, "
-            "tpubwa_torch.tools.scale_bench\n"
+            "tpubwa_torch.tools.scale_bench, "
+            "tpubwa_torch.tools.bench_world, tpubwa_torch.tools.diag_caps, "
+            "tpubwa_torch.tools.diag_scale, tpubwa_torch.tools.diag_tier2, "
+            "tpubwa_torch.tools.classify_overflow, "
+            "tpubwa_torch.tools.tune_budgets\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpubwa.')) or m == 'tpubwa')\n"
             "print(bad)\n")

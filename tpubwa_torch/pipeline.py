@@ -255,23 +255,49 @@ class Aligner:
     # oracle, so the common case stays on the small fast kernels.
     TIER2_ROWS = 512          # sub-batch row quantum for the big tier
 
-    def _packed_big_fn(self):
-        if "tier2" not in self._packed:
+    def _tier_configs(self, tier: int):
+        """(scfg, ccfg, ecfg, cap_factor) of big-caps tier 2 or 3: what
+        ``_packed_big_fn`` / ``_packed_big3_fn`` run, and what the overflow
+        diagnostics (``tools/diag_tier2.py``) break down."""
+        if tier == 2:
             big = dict(max_smems=63, max_seeds=640, max_chains=64,
                        max_regs=63)
-            scfg, ccfg, ecfg = configs_from_opts(
-                self.opt, seed_impl=self.seed_impl,
-                text_len=2 * int(self.idx.l_pac), sa_dense=640, **big)
-            if isinstance(scfg, LutSeedConfig):
-                scfg = dataclasses.replace(scfg, fm_dense=4,
-                                           offdiag_dense=2, r2_rows=1,
-                                           max_reseed=8)
+            seed_kw = dict(fm_dense=4, offdiag_dense=2, r2_rows=1,
+                           max_reseed=8)
             # the task-parallel engine with a 16x candidate budget covers
             # the worst single read (640 seeds) in one flat kernel batch
-            ecfg = dataclasses.replace(ecfg, tail_rows=1,
-                                       task_parallel=True,
-                                       cand_mult=16, retry_rows=2)
-            self._packed["tier2"] = self._make_packed(scfg, ccfg, ecfg)
+            ext_kw = dict(tail_rows=1, task_parallel=True, cand_mult=16,
+                          retry_rows=2)
+            cap_factor = self.CAP_FACTOR
+        elif tier == 3:
+            # chains AND regions scale together: a multi-repeat-family
+            # read forms ~one chain per occurrence, and every kept chain
+            # yields a region
+            big = dict(max_smems=63, max_seeds=1280, max_chains=512,
+                       max_regs=512)
+            # full-width dense budgets: a tier-3 batch is ALL repeat
+            # monsters
+            seed_kw = dict(fm_dense=1, offdiag_dense=1, r2_rows=1,
+                           max_reseed=8)
+            # ROUND engine here: a mega-repeat read extends hundreds of
+            # seeds and the task-parallel engine's optimistic candidate
+            # superset degenerates; sequential rounds are exact by
+            # construction
+            ext_kw = dict(tail_rows=1, task_parallel=False, retry_rows=2)
+            cap_factor = 512
+        else:
+            raise ValueError(f"tier {tier}: the big-caps tiers are 2 and 3")
+        scfg, ccfg, ecfg = configs_from_opts(
+            self.opt, seed_impl=self.seed_impl,
+            text_len=2 * int(self.idx.l_pac), sa_dense=big["max_seeds"],
+            **big)
+        if isinstance(scfg, LutSeedConfig):
+            scfg = dataclasses.replace(scfg, **seed_kw)
+        return scfg, ccfg, dataclasses.replace(ecfg, **ext_kw), cap_factor
+
+    def _packed_big_fn(self):
+        if "tier2" not in self._packed:
+            self._packed["tier2"] = self._make_packed(*self._tier_configs(2))
         return self._packed["tier2"]
 
     # below this many overflow reads, tier-2 is skipped and the scalar
@@ -284,28 +310,7 @@ class Aligner:
 
     def _packed_big3_fn(self):
         if "tier3" not in self._packed:
-            # chains AND regions scale together: a multi-repeat-family
-            # read forms ~one chain per occurrence, and every kept chain
-            # yields a region
-            big = dict(max_smems=63, max_seeds=1280, max_chains=512,
-                       max_regs=512)
-            scfg, ccfg, ecfg = configs_from_opts(
-                self.opt, seed_impl=self.seed_impl,
-                text_len=2 * int(self.idx.l_pac), sa_dense=1280, **big)
-            if isinstance(scfg, LutSeedConfig):
-                # full-width dense budgets: a tier-3 batch is ALL repeat
-                # monsters
-                scfg = dataclasses.replace(scfg, fm_dense=1,
-                                           offdiag_dense=1, r2_rows=1,
-                                           max_reseed=8)
-            # ROUND engine here: a mega-repeat read extends hundreds of
-            # seeds and the task-parallel engine's optimistic candidate
-            # superset degenerates; sequential rounds are exact by
-            # construction
-            ecfg = dataclasses.replace(ecfg, tail_rows=1,
-                                       task_parallel=False, retry_rows=2)
-            self._packed["tier3"] = self._make_packed(scfg, ccfg, ecfg,
-                                                      cap_factor=512)
+            self._packed["tier3"] = self._make_packed(*self._tier_configs(3))
         return self._packed["tier3"]
 
     def _rerun(self, fn, batch: ReadBatch, rows, quantum: int):

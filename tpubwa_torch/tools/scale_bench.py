@@ -139,6 +139,22 @@ def prepare(mbp: float, costs: dict, profile: str | None = None,
     return g, idx
 
 
+def load_cached(mbp: float, costs: dict, profile: str | None = None,
+                build_dir: Path = BUILD):
+    """(genome, index) of a prepared world; raises FileNotFoundError,
+    naming the command that prepares it, when a cache file is missing."""
+    glen = int(round(mbp * 1_000_000))
+    for path in cache_paths(glen, profile or default_profile(mbp),
+                            build_dir):
+        if not path.exists():
+            raise FileNotFoundError(
+                f"{path} is missing: prepare the {mbp:g} Mbp world with "
+                f"python -m tpubwa_torch.tools.scale_bench {BATCH} {mbp:g} "
+                "--prepare")
+    g = get_genome(mbp, costs, profile, build_dir)
+    return g, get_index(mbp, g, costs, profile, build_dir)
+
+
 def make_aligner(idx, mbp: float, costs: dict, device: str = "cuda",
                  profile: str | None = None, build_dir: Path = BUILD):
     """The aligner on ``device``, its k-mer table from the cache; records
@@ -159,6 +175,24 @@ def device_bytes(aln) -> dict:
                 for f in vars(d) if isinstance(getattr(d, f), torch.Tensor))
     lut = aln.lut.ksp.numel() * aln.lut.ksp.element_size()
     return {"index": index, "lut": lut}
+
+
+def require_card(device: str, prog: str) -> None:
+    """Raise unless ``device`` is the CPU or a CUDA card is present."""
+    if device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{prog}: no CUDA device is available; "
+                               "pass --platform cpu to run on the host")
+
+
+def se_batch(g, n_reads: int, seed: int = 3):
+    """n_reads SE 100 bp reads of the genome (1% substitutions, 0.1%
+    indels) as one ReadBatch."""
+    from ..io import fastx
+    recs = fastx.simulate_reads(np.asarray(g), n_reads, read_len=READ_LEN,
+                                error_rate=0.01, indel_rate=0.001, seed=seed)
+    return fastx.batch_reads(recs, max_len=READ_LEN)
 
 
 def sync(aln) -> None:
@@ -304,11 +338,7 @@ def run(n_reads: int = 8192, mbp: float = 64, pe: bool = False,
         device: str = "cuda", profile: str | None = None,
         build_dir: Path = BUILD, pe_pairs: int = PE_PAIRS) -> list:
     """The SE row (and the PE row); each a dict of the JSON line's keys."""
-    if device == "cuda":
-        import torch
-        if not torch.cuda.is_available():
-            raise RuntimeError("scale_bench: no CUDA device is available; "
-                               "pass --platform cpu to run on the host")
+    require_card(device, "scale_bench")
     costs = {}
     g, idx = prepare(mbp, costs, profile, build_dir)
     aln = make_aligner(idx, mbp, costs, device, profile, build_dir)
