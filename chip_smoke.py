@@ -117,7 +117,9 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                tune_budgets.py, diag_scale.py, diag_tier2.py,
                classify_overflow.py) on the card: at 4.6 Mbp diag_caps on
                the bench batch of 4096 at the default caps and
-               tune_budgets' seven seeding-budget variants; at 64 Mbp, on
+               tune_budgets' seeding-budget variants (three in the full
+               call: the base, fm_dense=8, offdiag_dense=4; the seven of
+               its default sweep in the diag call); at 64 Mbp, on
                phase 15's aligner, diag_scale and diag_tier2 on 4096
                reads, classify_overflow on the first 2048 (SMEMs and
                seeds) and on every 16th read (also chains and regions),
@@ -135,9 +137,31 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                tune_budgets' base variant flags another number of reads
                than diag_caps on the same batch, or if a tool imported JAX
                or the reference package.
-Phases 7-16 run between phases 5 and 6, each from counts of its own;
-phase 6 also holds K1 on the first call of phases 13, 14, 15 and 16 and K2
-on phase 15's first forward call to their plain versions (5 more
+ 17. profile — the profiling tools (tpubwa_torch/tools/profile_phases.py,
+               time_stages.py, time_extend.py, profile_finish.py,
+               profile_pe.py) and the parity spot check (parity.py) on the
+               4.6 Mbp bench world with phase 3's aligner: profile_phases,
+               time_stages and time_extend (both engines' rows; best of 2
+               reps in the full call, of 3 in the profile call) on 4096
+               reads, profile_finish on 4096 reads, profile_pe on 2048
+               pairs, parity on 2048 reads (2% / 0.2% errors, seed 3);
+               each prints its rows and a JSON line with the card; fails
+               if a tool imported JAX or the reference package, parity
+               finds a differing line, the 2-thread finish SAM differs
+               from the 1-thread one or (on the bench batch, through the
+               uncut walk and extension) from Oracle.align_se, or
+               profile_pe misses a rescue result;
+ 18. rehearsal — tools/run_1m.py on phase 15's 64 Mbp caches: 3072 pairs
+               of 150 bp (inserts 400 +- 50) through `align r_1.fq r_2.fq
+               --shard-dir ... --batch-size 2048` in a subprocess,
+               SIGKILLed after its second batch line and run again; fails
+               unless the run was killed, the resume began past batch 0,
+               the merged shards hold 2 x 3072 records and every line
+               equals the header + Oracle.align_pe, batch by batch.
+Phases 7-18 run between phases 5 and 6, each from counts of its own;
+phase 6 also holds K1 on the first call of phases 13, 14, 15 and 16 and on
+phase 17's time_extend kernel row, and K2 on the first forward call of
+phase 15 and of phase 17's profile_pe, to their plain versions (7 more
 entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
@@ -150,7 +174,9 @@ latency only, for work on the kernels; python3 chip_smoke.py slice runs
 the build and phases 7-12 only; python3 chip_smoke.py scale the build and
 phases 13-15, with the kernels line of their 4 entries; python3
 chip_smoke.py diag the build, the 64 Mbp --prepare and phase 16, with the
-kernels line of its one entry.)
+kernels line of its one entry; python3 chip_smoke.py profile the build,
+the 64 Mbp --prepare and phases 17-18, with the kernels line of their 2
+entries.)
 """
 import json
 import os
@@ -1981,6 +2007,10 @@ CLASSIFY_FAST_READS = 2048   # phase 16: the oracle's counts, SMEMs + seeds
 CLASSIFY_FULL_READS = 256    # ... and with chains and regions
 ORACLE_SAMPLE = 512          # most reads the oracle's ms a read is taken on
 TUNE_REPS = 3                # tune_budgets: best of 3 steady worker1 calls
+# tune_budgets at 4.6 Mbp in the full call (cut from the seven of the
+# diag call for time): the base and each dense budget of the LUT walk
+# doubled (fm_dense 16 -> 8, offdiag_dense 8 -> 4)
+FULL_CALL_VARIANTS = ({}, {"fm_dense": 8}, {"offdiag_dense": 4})
 # tune_budgets at 64 Mbp: each dense budget of the LUT walk relaxed 2x
 SCALE_VARIANTS = ({}, {"fm_dense": 8}, {"offdiag_dense": 2},
                   {"fm_dense": 8, "offdiag_dense": 2})
@@ -2022,16 +2052,18 @@ def oracle_ms(aln, batch, rows) -> tuple:
     return len(rows), (time.perf_counter() - t0) * 1e3 / len(rows)
 
 
-def diag_bench(aln, card: str) -> dict:
-    """Phase 16 at 4.6 Mbp: diag_caps and tune_budgets' seven variants on
-    the bench batch of 4096 reads, at the default caps."""
+def diag_bench(aln, card: str, variants=None) -> dict:
+    """Phase 16 at 4.6 Mbp: diag_caps and tune_budgets' ``variants`` (the
+    base first; the seven of its default sweep when None) on the bench
+    batch of 4096 reads, at the default caps."""
     from tpubwa_torch.tools import bench_world, diag_caps, tune_budgets
     batch = bench_world.reads(aln.idx, BATCH)
     caps = diag_caps.diag_caps(aln, batch)
     diag_caps.report(caps)
     print(f"diag_caps: {json.dumps(caps)} [{card}]", flush=True)
     check_cumulative(caps["overflow"], "diag_caps")
-    tune = tune_budgets.tune_budgets(aln, batch, reps=TUNE_REPS)
+    tune = tune_budgets.tune_budgets(
+        aln, batch, variants or tune_budgets.DEFAULT_VARIANTS, reps=TUNE_REPS)
     for row in tune["variants"]:
         print(f"tune_budgets {row['variant']:32s} w1={row['w1_ms']:7.1f} ms "
               f"(first {row['first_ms']:.1f} ms) ovf={row['overflow']:5d}/"
@@ -2151,14 +2183,15 @@ def diag_scale_world(aln, g, card: str) -> dict:
     return dict(scale=ds, tier2=dt, split=split, oracle=orc, tune=tune)
 
 
-def diag_phase(aln, aln64, g, card: str) -> dict:
+def diag_phase(aln, aln64, g, card: str, variants=None) -> dict:
     """Phase 16: the overflow diagnostics (tools/diag_*.py,
     classify_overflow.py, tune_budgets.py) at 4.6 and 64 Mbp, K1's
     launches counted from 0 and its first call recorded."""
     t_phase = time.time()
     first, log = [], []
     (bench, scale), k1 = count_k1(lambda: (
-        diag_bench(aln, card), diag_scale_world(aln64, g, card)), log, first)
+        diag_bench(aln, card, variants), diag_scale_world(aln64, g, card)),
+        log, first)
     no_reference_imported("phase 16's tools")
     print(f"phase 16: K1 launched {k1} times [{card}]", flush=True)
     if k1 <= 0:
@@ -2167,6 +2200,141 @@ def diag_phase(aln, aln64, g, card: str) -> dict:
     print(f"phase 16 took {time.time() - t_phase:.1f} s [{card}]",
           flush=True)
     return dict(first=first[0], k1=k1, bench=bench, scale=scale)
+
+
+PROFILE_REPS = 3        # phase 17: time_stages' and time_extend's reps
+FULL_CALL_REPS = 2      # ... in the full call (cut for time)
+PARITY_READS = 2048     # phase 17: parity's SE reads (2% / 0.2% errors)
+REHEARSAL_PAIRS = 3072  # phase 18: run_1m's pairs at 64 Mbp
+REHEARSAL_BATCH = 2048  # ... and its --batch-size (1024 pairs a batch)
+
+
+def tool_line(name: str, r: dict, card: str):
+    """A tool's JSON line with the card, without its SAM texts."""
+    keep = {k: v for k, v in r.items() if k not in ("sam_1t", "sam_2t")}
+    print(f"{name}: {json.dumps(keep)} [{card}]", flush=True)
+
+
+def profile_tools(aln, card: str, reps: int) -> dict:
+    """Phase 17's tools on the 4.6 Mbp bench world; returns K1's first
+    kernel-row inputs and K2's first forward call's."""
+    from tpubwa_torch.pair import rescue
+    from tpubwa_torch.tools import (bench_world, parity, profile_finish,
+                                    profile_pe, profile_phases, time_extend,
+                                    time_stages)
+    batch = bench_world.reads(aln.idx, BATCH)
+    r = profile_phases.profile_phases(aln, batch)
+    profile_phases.report(r)
+    tool_line("profile_phases", r, card)
+    r = time_stages.time_stages(aln, BATCH, reps=reps)
+    time_stages.report(r)
+    tool_line("time_stages", r, card)
+    k1_args = []
+    for round_engine in (False, True):
+        r = time_extend.time_extend(aln, BATCH, round_engine,
+                                    reps=reps, record=k1_args)
+        time_extend.report(r)
+        tool_line(f"time_extend ({r['engine']})", r, card)
+    r = profile_finish.profile_finish(aln, batch)
+    profile_finish.report(r)
+    tool_line("profile_finish", r, card)
+    # the uncut walk and extension (worker1_packed) against the oracle: the
+    # cuts leave the path alone
+    first_diff(r["sam_1t"], aln.oracle.align_se(batch, aln.opt, id0=0),
+               "profile_finish's 1-thread SAM against Oracle.align_se")
+    print(f"profile_finish: the 1-thread SAM of the bench batch is "
+          f"byte-equal to Oracle.align_se [{card}]", flush=True)
+    k2_first = []
+    real = rescue.ksw_local
+
+    def recorder(*args, want_sub, **kw):
+        if want_sub and not k2_first:
+            k2_first.append(tuple(a.clone() for a in args))
+        return real(*args, want_sub=want_sub, **kw)
+    rescue.ksw_local = recorder
+    try:
+        r = profile_pe.profile_pe(aln, PE_PAIRS)
+    finally:
+        rescue.ksw_local = real
+    profile_pe.report(r)
+    tool_line("profile_pe", r, card)
+    if r["rescue_results_missing"] or not r["n_rescue_tasks"]:
+        raise AssertionError(f"profile_pe: {r['rescue_results_missing']} "
+                             f"rescue results missing of "
+                             f"{r['n_rescue_tasks']} tasks")
+    r = parity.parity(aln, PARITY_READS)
+    parity.report(r)
+    tool_line("parity", r, card)
+    if r["differ"]:
+        raise AssertionError(f"parity: {r['differ']} of {r['records']} "
+                             "records differ from the oracle")
+    return dict(k1_args=k1_args[0], k2_first=k2_first[0])
+
+
+def profile_phase(aln, card: str, reps: int = PROFILE_REPS) -> dict:
+    """Phase 17: the profiling tools and the parity spot check on the
+    4.6 Mbp bench world, K1's and K2's launches counted from 0;
+    time_stages and time_extend take the best of ``reps``."""
+    from tpubwa_torch.ops import sw_local
+    t_phase = time.time()
+    sw_local.ksw_local.launches = 0
+    out, k1 = count_k1(lambda: profile_tools(aln, card, reps), [])
+    k2 = sw_local.ksw_local.launches
+    no_reference_imported("phase 17's tools")
+    print(f"phase 17: K1 launched {k1} times, K2 {k2} times [{card}]",
+          flush=True)
+    if k1 <= 0 or k2 <= 0:
+        raise AssertionError("phase 17 launched K1 or K2 no time")
+    print(f"phase 17 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return dict(out, k1=k1, k2=k2)
+
+
+def rehearsal_phase(aln64, card: str) -> dict:
+    """Phase 18: tools/run_1m.py on the 64 Mbp caches: PE pairs through
+    the command line, killed after the second batch line and resumed;
+    the merged file byte-equal to the header + Oracle.align_pe, batch by
+    batch (each batch has its own insert histogram)."""
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import run_1m
+    t_phase = time.time()
+    out = run_1m.run_1m(REHEARSAL_PAIRS, 0.0, SCALE_MBP, REHEARSAL_BATCH,
+                        "cuda")
+    print(f"run_1m: {json.dumps(out)} [{card}]", flush=True)
+    if not (out["phase1_killed"] and out["resume_skipped_done"]):
+        raise AssertionError("run_1m: the run was not killed, or the "
+                             "resume began at batch 0")
+    if out["phase2_rc"] != 0 or not out["records_ok"]:
+        raise AssertionError(f"run_1m: the resume exited "
+                             f"{out['phase2_rc']}, {out['total_records']} "
+                             f"records merged for {REHEARSAL_PAIRS} pairs")
+    work = Path(out["work"])
+    pe = [r for m in zip(fastx.iter_fastq(work / "r_1.fq"),
+                         fastx.iter_fastq(work / "r_2.fq")) for r in m]
+    t0 = time.time()
+    want = aln64.sam_header() + "".join(aln64.oracle.align_pe(
+        fastx.batch_reads(pe[i:i + REHEARSAL_BATCH], max_len=PE_READ_LEN),
+        aln64.opt, id0=i // 2)[0] for i in range(0, len(pe),
+                                                 REHEARSAL_BATCH))
+    first_diff((work / "merged.sam").read_text(), want, "the rehearsal's "
+               "merged shards against the header + Oracle.align_pe")
+    print(f"rehearsal: {REHEARSAL_PAIRS} pairs at {SCALE_MBP} Mbp, killed "
+          f"after {out['phase1_batches']} batch lines, resumed at batch "
+          f"{out['phase2_first_batch']}; {out['total_records']} merged "
+          f"records byte-equal to the header + Oracle.align_pe (oracle "
+          f"{time.time() - t0:.1f} s); phase 18 took "
+          f"{time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
+def profile_entries(prof, card: str) -> list:
+    """Phase 6 for phase 17: K1 on time_extend's kernel-row input and K2
+    on profile_pe's first forward call, each held to its plain version."""
+    return [k1_entry("ksw_extend_profile", "time_extend's K1 kernel x1 "
+                     "row (phase 17)", prof["k1_args"], prof["k1"], card),
+            k2_entry("ksw_local_profile", "PE rescue, forward pass, "
+                     "profile_pe (phase 17)", prof["k2_first"], prof["k2"],
+                     card)]
 
 
 def k1_entry(name: str, path: str, args, n_l: int, card: str) -> tuple:
@@ -2204,22 +2372,28 @@ def new_path_entries(longr, i64, scale, card: str) -> list:
          i64["first"], i64["k1"]),
         ("ksw_extend_scale", f"SE 100 bp, {SCALE_MBP} Mbp (phase 15)",
          scale["first"], scale["k1"]))]
-    args = scale["k2_first"]
+    out.append(k2_entry("ksw_local_scale", f"PE rescue, forward pass, "
+                        f"{SCALE_MBP} Mbp (phase 15)", scale["k2_first"],
+                        scale["k2"], card))
+    return out
+
+
+def k2_entry(name: str, path: str, args, n_l: int, card: str) -> tuple:
+    """K2 (forward pass) on a path's first forward call (``args``), held
+    to its plain version and timed beside its bound; ``n_l`` is the
+    path's launch count."""
     m = k2_measure(args, True, generic=True)
-    print(f"K2 ksw_local_scale first forward call N={args[0].shape[0]} "
+    print(f"K2 {name} first forward call N={args[0].shape[0]} "
           f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
           f"{m['max_abs_err']} (tolerance 0) kernel {m['ms']:.4f} ms, "
           f"generic instance {m['generic_ms']:.4f} ms, plain "
           f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms "
           f"({m['bound_by']}: {m['cells']} cells, {m['bytes']} bytes); "
-          f"{scale['k2']} forward launches on the path [{card}]",
-          flush=True)
+          f"{n_l} launches on the path [{card}]", flush=True)
     if m["max_abs_err"] != 0:
-        raise AssertionError("K2 differs from ksw_local_ref on the 64 Mbp "
-                             "PE row's inputs")
-    out.append(("ksw_local_scale", f"PE rescue, forward pass, {SCALE_MBP} "
-                "Mbp (phase 15)", "ksw_local.cu", 231, scale["k2"], m))
-    return out
+        raise AssertionError(f"K2 differs from ksw_local_ref on {name}'s "
+                             "inputs")
+    return name, path, "ksw_local.cu", 231, n_l, m
 
 
 def kernel_entry(name, path, src, line, n_l, sweep_err, m) -> dict:
@@ -2310,6 +2484,26 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phase 16 only"}))
         return 0
+    if sys.argv[1:] == ["profile"]:
+        prep = start_scale_prepare()
+        try:
+            aln = timed_phase("17 set-up (4.6 Mbp index and LUT)",
+                              make_aligner)
+            # the 64 Mbp build ends before phase 17, so that no host work
+            # runs beside the tools' timings
+            _, aln64, _ = timed_phase("18 set-up (64 Mbp world)",
+                                      scale_world, card, prep, "17")
+        finally:
+            stop(prep)
+        prof = timed_phase("17 (profile)", profile_phase, aln, card)
+        timed_phase("18 (rehearsal)", rehearsal_phase, aln64, card)
+        print(json.dumps({"kernels": [kernel_entry(*e[:5], 0, e[5])
+                                      for e in profile_entries(prof, card)]}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phases 17-18 only"}))
+        return 0
     if sys.argv[1:] == ["scale"]:
         prep = start_scale_prepare()
         phase = beside_build(prep, time.time())
@@ -2357,7 +2551,10 @@ def main() -> int:
     finally:
         stop(prep)
     diag = timed_phase("16 (diag)", diag_phase, aln, scale["aln"],
-                       scale["g"], card)
+                       scale["g"], card, FULL_CALL_VARIANTS)
+    prof = timed_phase("17 (profile)", profile_phase, aln, card,
+                       FULL_CALL_REPS)
+    timed_phase("18 (rehearsal)", rehearsal_phase, scale["aln"], card)
     t6 = time.time()
     r1 = {}
     for path, args, n_l in (("SE", k1_args, launches),
@@ -2390,12 +2587,12 @@ def main() -> int:
             raise AssertionError("K2 differs from ksw_local_ref on the "
                                  "main-path inputs")
     new = new_path_entries(longr, i64, scale, card) + \
-        [diag_entry(diag, card)]
+        [diag_entry(diag, card)] + profile_entries(prof, card)
     print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
     # one entry per kernel and path: K1 on the SE and the PE path (other
     # shapes, its own launch count), K2's two template instances, then
     # the later slices' paths: K1 on the long, int64 and 64 Mbp paths, K2
-    # on the 64 Mbp PE row, K1 in phase 16
+    # on the 64 Mbp PE row, K1 in phase 16, K1 and K2 in phase 17
     kernels = [
         kernel_entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches,
                      worst, r1["SE"]),

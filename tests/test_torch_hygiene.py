@@ -28,7 +28,12 @@ def test_import_pulls_in_no_jax_and_no_tpubwa():
             "tpubwa_torch.tools.bench_world, tpubwa_torch.tools.diag_caps, "
             "tpubwa_torch.tools.diag_scale, tpubwa_torch.tools.diag_tier2, "
             "tpubwa_torch.tools.classify_overflow, "
-            "tpubwa_torch.tools.tune_budgets\n"
+            "tpubwa_torch.tools.tune_budgets, "
+            "tpubwa_torch.tools.profile_phases, "
+            "tpubwa_torch.tools.time_stages, tpubwa_torch.tools.time_extend, "
+            "tpubwa_torch.tools.profile_finish, "
+            "tpubwa_torch.tools.profile_pe, tpubwa_torch.tools.parity, "
+            "tpubwa_torch.tools.run_1m\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpubwa.')) or m == 'tpubwa')\n"
             "print(bad)\n")

@@ -23,9 +23,8 @@ DROPPED_MODULES = {"tpubwa.ops.sw_pallas", "tpubwa.extend.jax_extend"}
 DROPPED_NAMES = {("tpubwa.index.builder", "suffix_array_doubling")}
 DROPPED_METHODS = {"tree_flatten", "tree_unflatten"}
 
-# reference parameters the port does not take: the TPU kernel switch and
-# the reference's debugging cut of extend_chains
-DROPPED_PARAMS = {"use_pallas", "_stop_after"}
+# reference parameters the port does not take: the TPU kernel switch
+DROPPED_PARAMS = {"use_pallas"}
 
 # parameters the port adds that a reference caller cannot pass: the device
 # of an index or table, and the mesh a row-sharded index keeps its shards

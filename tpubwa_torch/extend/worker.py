@@ -89,11 +89,16 @@ def _any(x: torch.Tensor) -> bool:
 
 
 def extend_chains(didx: DeviceIndex, seqs, lens, seeds: dict, chains: dict,
-                  cfg: ExtendConfig, flt: dict):
+                  cfg: ExtendConfig, flt: dict, _stop_after: str = ""):
     """Run mem_chain2aln for all kept chains of all reads.
 
     seqs: (B, L) int32; lens: (B,); seeds/chains/flt from chain.device.
     Returns dict of (B, max_regs) reg tensors + n (B,) + overflow (B,).
+
+    ``_stop_after`` is a debugging exit for stage bisection
+    (tools/time_extend.py): "pre" returns the initial state; "sel1",
+    "round1" and "sel2" cut the round engine, "tp1", "tp2" and "tp3" the
+    task-parallel one (``_extend_taskpar``).
     """
     B, L = seqs.shape
     S = seeds["rbeg"].shape[1]
@@ -174,8 +179,10 @@ def extend_chains(didx: DeviceIndex, seqs, lens, seeds: dict, chains: dict,
         cid=zr(fill=-1), rid=zr(fill=-1),
     )
 
+    if _stop_after == "pre":
+        return st
     if cfg.task_parallel:
-        return _extend_taskpar(didx, cfg, ctx, st)
+        return _extend_taskpar(didx, cfg, ctx, st, _stop_after)
 
     eng = _Engine(didx, cfg, ctx)
     # ---- full-width rounds: round 1 extends virtually every read once;
@@ -183,11 +190,17 @@ def extend_chains(didx: DeviceIndex, seqs, lens, seeds: dict, chains: dict,
     # second-chain extension before the compacted tail ----
     for _ in range(max(cfg.full_rounds, 1)):
         st = eng.select(st)
+        if _stop_after == "sel1":
+            return st
         if _any(eng.active(st)):
             st = eng.run_extension(st)
+    if _stop_after == "round1":
+        return st
     # advance past seeds the full-round regions now contain, so only reads
     # that truly need another EXTENSION enter the tail
     st = eng.select(st)
+    if _stop_after == "sel2":
+        return st
 
     # ---- tail rounds: reads with >1 surviving extension task are rare,
     # so the remaining rounds run on a row-compacted sub-batch ----
@@ -356,7 +369,8 @@ def _seedcov(qbeg_r, rbeg_r, len_r, cid_r, scid, qb, qe, rb, re):
     return torch.where(incov, len_r, 0).sum(dim=1, dtype=_I32)
 
 
-def _extend_taskpar(didx: DeviceIndex, cfg: ExtendConfig, ctx: dict, st):
+def _extend_taskpar(didx: DeviceIndex, cfg: ExtendConfig, ctx: dict, st,
+                    _stop_after: str = ""):
     """Precompute-then-replay engine (the production tier-1 path).
 
     Exactness argument: a seed's extension result depends only on (seed,
@@ -379,6 +393,11 @@ def _extend_taskpar(didx: DeviceIndex, cfg: ExtendConfig, ctx: dict, st):
       3. candidate extensions (second flat kernel batch, row-compacted);
       4. kernel-free exact replay (containment/rescue machinery of
          _Engine + precomputed pushes).
+
+    ``_stop_after`` "tp1", "tp2" or "tp3" returns ``st`` after that phase,
+    with a value of the phase folded in so that nothing of it is dead
+    work: tp1 adds the first-seed rb to st["rb"], tp2 the candidate count
+    a read to st["n"], tp3 a column of the precompute table to st["rb"].
     """
     pair_order, n_pairs = ctx["pair_order"], ctx["n_pairs"]
     qbeg_s, rbeg_s, len_s = ctx["qbeg_s"], ctx["rbeg_s"], ctx["len_s"]
@@ -410,6 +429,10 @@ def _extend_taskpar(didx: DeviceIndex, cfg: ExtendConfig, ctx: dict, st):
     cov0 = _seedcov(qbeg_s, rbeg_s, len_s, cid_s, scid0,
                     ext0["qb"], ext0["qe"], ext0["rb"], ext0["re"])
     rid0 = _row_pick(crid, scid0c)
+    if _stop_after == "tp1":
+        st = dict(st)
+        st["rb"] = st["rb"] + ext0["rb"][:, None]
+        return st
 
     # ---- phase 2: optimistic candidate mask (superset — see above) ----
     # containment of every stored seed vs the round-1 region only
@@ -449,6 +472,10 @@ def _extend_taskpar(didx: DeviceIndex, cfg: ExtendConfig, ctx: dict, st):
     seed_rank = ctx["seed_rank"]
     first_oh = active0[:, None] & (s_iota == slot0[:, None])
     cand = stored & (seed_rank < C) & (~around0 | rescue0) & ~first_oh
+    if _stop_after == "tp2":
+        st = dict(st)
+        st["n"] = st["n"] + cand.sum(dim=1, dtype=_I32)
+        return st
 
     # ---- phase 3: flat candidate task batch ----
     K = max(B * cfg.cand_mult // max(cfg.cand_rows, 1), 64)
@@ -499,6 +526,13 @@ def _extend_taskpar(didx: DeviceIndex, cfg: ExtendConfig, ctx: dict, st):
     pre[idx0] = rows0
     pre[idx3] = rows3
     pre = pre[:B * S]
+    if _stop_after == "tp3":
+        # the reference's table keeps rb as int32 halves (rb >> 30, rb &
+        # (2**30 - 1)) in its first two columns, where this one keeps it
+        # whole: its column 1 is the low half, int32 at either index width
+        lo = (pre[:, 0] & ((1 << 30) - 1)).to(_I32)
+        st["rb"] = st["rb"] + lo.reshape(B, S)[:, :1]
+        return st
 
     # ---- phase 4: exact kernel-free replay. One step processes ONE seed
     # per read (skip OR push its precomputed region) — exactly the scalar

@@ -272,7 +272,8 @@ def _dense_src(cs: torch.Tensor, D: int, n_all: int) -> torch.Tensor:
 
 def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
               lens: torch.Tensor, v: torch.Tensor, shortcut: bool,
-              cfg: LutSeedConfig, codes=None, lane_min=None):
+              cfg: LutSeedConfig, codes=None, lane_min=None,
+              _stop_after: str = ""):
     """Per-end walk from the k0-mer start.  seqs (B, L) int32, v (B,).
 
     Returns (bstart, k, s, pos) each (B, L+1) indexed by end j (entry 0
@@ -285,8 +286,26 @@ def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
       for lanes that became unique mid-loop -> per-READ diagonal text
       comparison (one genome window per read finishes ALL its unique
       lanes) -> compacted per-lane fallback for off-diagonal lanes.
+
+    ``_stop_after`` ("lut", "fm1", "fm2" or "diag") is a debugging exit for
+    stage bisection (tools/time_stages.py): the walk returns after that
+    phase, as ``_stopped`` says.
     """
     B, L = seqs.shape
+
+    def cat(a):
+        return torch.cat([torch.zeros((B, 1), dtype=a.dtype,
+                                      device=a.device), a], dim=1)
+
+    def _stopped(*arrs):
+        # the given arrays left-padded by one column, int32 zeros for the
+        # rest (int32 even where k is int64, as in the reference), no
+        # overflow, step count 0
+        z = torch.zeros((B, L + 1), dtype=torch.int32, device=seqs.device)
+        out = [z, z, z, z]
+        out[:len(arrs)] = [cat(a) for a in arrs]
+        return (*out, torch.zeros((B,), dtype=torch.bool,
+                                  device=seqs.device), 0)
     k0 = lut.k0
     l_pac = didx.l_pac
     j = _arange(L, seqs, start=1)[None, :]
@@ -323,6 +342,8 @@ def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
     sa_mid = torch.zeros((B, L), dtype=torch.bool, device=seqs.device)
     v_b = v[:, None]
     v1_b = v_b == 1
+    if _stop_after == "lut":
+        return _stopped(bpos, k)
 
     # ---- FM stage 1: a few full-width lockstep steps. Live lanes all
     # start together and stop forever on failure, so at step t the next
@@ -345,6 +366,8 @@ def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
         else:
             new_sa = torch.zeros_like(good)
         fm = good & ~new_sa & (bpos > 0)
+    if _stop_after == "fm1":
+        return _stopped(bpos, k, s)
 
     # ---- FM stage 2: compact the (few) survivors and loop to completion
     BL = B * L
@@ -400,6 +423,8 @@ def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
     k = torch.where(took, back[..., 0], k)
     s = torch.where(took, back[..., 1], s)
     bpos = torch.where(took, back[..., 2].to(torch.int32), bpos)
+    if _stop_after == "fm2":
+        return _stopped(bpos, k, s)
     if shortcut:
         # mid-walk unique lanes carry a rank but NOT a position; most are
         # finished by the diagonal comparison below without any SA walk
@@ -440,6 +465,8 @@ def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
         offdiag = sa_all & ~ondiag
         bpos = torch.where(ondiag, b_diag, bpos)
         pos1 = torch.where(ondiag, ref_diag[:, None] + b_diag, pos1)
+        if _stop_after == "diag":
+            return _stopped(bpos, k, s, pos1)
 
         # ---- off-diagonal fallback: per-lane SA resolve + window compare
         # on a dense lane set (off-diagonal lanes are a few % of B*L —
@@ -481,9 +508,6 @@ def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
         s = torch.where(sa_now, 1, s)
         k = torch.where(sa_now, -1, k)
 
-    def cat(a):
-        return torch.cat([torch.zeros((B, 1), dtype=a.dtype,
-                                      device=a.device), a], dim=1)
     pos_out = pos1 if shortcut else torch.full_like(k, -1)
     return cat(bpos.to(torch.int32)), cat(k), cat(s), cat(pos_out), \
         overflow, it
