@@ -4,8 +4,10 @@
 Phases (each raises on failure; nothing is caught and turned into exit 0):
   1. build   — the banded-extension kernel K1 (tpubwa_torch/csrc/
                ksw_extend.cu), the local-alignment kernel K2 (csrc/
-               ksw_local.cu), both nvcc for sm_90a, and the native oracle
-               (native/*.cpp, g++), all from this checkout, in parallel;
+               ksw_local.cu), both nvcc for sm_90a (and each again without
+               DPX instructions, for phase 2's row latency), and the native
+               oracle (native/*.cpp, g++), all from this checkout, in
+               parallel;
                prints what ptxas says of every template instance
                (registers, spills);
   2. parity  — each kernel against its plain PyTorch version on the card,
@@ -71,9 +73,9 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                its two lone batches; host 1's shard the rest of that batch;
                the inserts are planted so that host 0's first batch aligns
                differently with its own histogram, else the phase fails;
- 11. anchor  — one SE batch of 1024 x 100 bp through Aligner(seed_impl=
+ 11. anchor  — one SE batch of 256 x 100 bp through Aligner(seed_impl=
                "anchor", device="cuda"), SAM byte-equal to the oracle, K1
-               launched; on its first 256 reads collect_smems_anchor and
+               launched; on its reads collect_smems_anchor and
                collect_smems equal to Oracle.smems on every read that did
                not overflow; the anchor seed stage timed beside the LUT's.
  12. dist    — device-level distribution on the card(s): worker1_sharded
@@ -105,13 +107,15 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
  15. scale   — tools/scale_bench at 64 Mbp (chr20 size, BASELINE config 3):
                the genome, index and LUT built (cold) by a --prepare process
                started before phase 7 (phases 7-14 run beside it, and each
-               prints whether it still ran at its end), one warm-up and 2
-               timed streamed batches of 4096 SE reads, every line
+               prints whether it still ran at its end), one warm-up and 1
+               timed streamed batch of 4096 SE reads (2 in the scale
+               call), every line
                byte-equal to the oracle; tier-1 overflow per batch and
                whether tier 2 fired (if it fired on no batch, a batch
                built from the overflow reads opens its gate); the tier-2
                call's time and a stage split of that batch (tiers, finish,
-               the whole batch); the PE row (1024 pairs, byte-equal to
+               the whole batch); the PE row (1024 pairs, 512 in the full
+               call, byte-equal to
                Oracle.align_pe, no rescue result missing).
  16. diag    — the overflow diagnostics (tpubwa_torch/tools/diag_caps.py,
                tune_budgets.py, diag_scale.py, diag_tier2.py,
@@ -127,7 +131,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                whose oracle counts exceed a cap and those only the dense
                budgets flag (tier 1 and tier 2, over the whole batch, and
                by quarter of the batch), worker1 with each dense budget
-               relaxed 2x (tune_budgets, one rep), and Oracle.align_se's
+               relaxed 2x (tune_budgets, one rep; in the full call the
+               base and fm_dense=8 only), and Oracle.align_se's
                ms a read (one thread, at most 512 reads, evenly spaced)
                on the reads tier 1 flagged, on those
                tier 2 left (tier 3's input), on those the tiers left and
@@ -141,31 +146,51 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                time_stages.py, time_extend.py, profile_finish.py,
                profile_pe.py) and the parity spot check (parity.py) on the
                4.6 Mbp bench world with phase 3's aligner: profile_phases,
-               time_stages and time_extend (both engines' rows; best of 2
-               reps in the full call, of 3 in the profile call) on 4096
-               reads, profile_finish on 4096 reads, profile_pe on 2048
-               pairs, parity on 2048 reads (2% / 0.2% errors, seed 3);
+               time_stages and time_extend (both engines' rows; one timed
+               rep after the warm-up in the full call, best of 3 in the
+               profile call) on 4096 reads, profile_finish on 4096 reads,
+               profile_pe on 2048 pairs (1024 in the full call), parity
+               on 2048 reads (2% / 0.2% errors, seed 3);
                each prints its rows and a JSON line with the card; fails
                if a tool imported JAX or the reference package, parity
                finds a differing line, the 2-thread finish SAM differs
                from the 1-thread one or (on the bench batch, through the
                uncut walk and extension) from Oracle.align_se, or
                profile_pe misses a rescue result;
- 18. rehearsal — tools/run_1m.py on phase 15's 64 Mbp caches: 3072 pairs
+ 18. rehearsal — tools/run_1m.py on phase 15's 64 Mbp caches: 768 pairs
                of 150 bp (inserts 400 +- 50) through `align r_1.fq r_2.fq
-               --shard-dir ... --batch-size 2048` in a subprocess,
+               --shard-dir ... --batch-size 512` in a subprocess,
                SIGKILLed after its second batch line and run again; fails
                unless the run was killed, the resume began past batch 0,
-               the merged shards hold 2 x 3072 records and every line
+               the merged shards hold 2 x 768 records and every line
                equals the header + Oracle.align_pe, batch by batch.
-Phases 7-18 run between phases 5 and 6, each from counts of its own;
-phase 6 also holds K1 on the first call of phases 13, 14, 15 and 16 and on
-phase 17's time_extend kernel row, and K2 on the first forward call of
-phase 15 and of phase 17's profile_pe, to their plain versions (7 more
+ 19. bench   — `python3 bench_torch.py` (bench.py's counterpart) in a
+               subprocess, with TPUBWA_BENCH_TIMED=1 in the full call (cut
+               from bench.py's 8 for time; the bench call keeps 8): one
+               JSON line with every key of bench.py's plus "card"; fails
+               unless both rates are above 0, the card is this card and
+               K1 (SE and PE) and K2 launched in its timed runs;
+ 20. dryrun  — tools/dryrun.py (__graft_entry__.py's counterpart): entry()
+               with a region on every read, dryrun_multichip(8) over 8
+               logical shards of cuda:0 (8 cards where there are) with the
+               index widened to int64 and the LOAD test (8 x 1024 reads,
+               2 Mbp), the reference's asserts; its sharded outputs equal
+               worker1_step on the blocks and, on every read that
+               overflows in neither, on the whole batch (the LOAD test's
+               too, against its one-device run); it writes
+               build/tpubwa_torch/SCALING_torch.json. In the full call
+               a `dryrun --prepare` process builds the 2 Mbp caches beside
+               phases 7-14, as phase 15's --prepare does.
+Phases 7-20 run between phases 5 and 6, each from counts of its own;
+phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and 20 and
+on phase 17's time_extend kernel row, and K2 on the first forward call of
+phase 15 and of phase 17's profile_pe, to their plain versions (8 more
 entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
-Every phase prints its seconds, and the call its whole seconds.
+Every phase prints its seconds, and the call its whole seconds. In the
+full call a process builds the bench world's index and LUT caches beside
+phases 1-2, and phase 3 waits for it.
 The last line of standard output is {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
@@ -176,8 +201,10 @@ phases 13-15, with the kernels line of their 4 entries; python3
 chip_smoke.py diag the build, the 64 Mbp --prepare and phase 16, with the
 kernels line of its one entry; python3 chip_smoke.py profile the build,
 the 64 Mbp --prepare and phases 17-18, with the kernels line of their 2
-entries.)
+entries; python3 chip_smoke.py bench the build and phases 19 (8 timed SE
+batches) and 20, with the kernels line of phase 20's entry.)
 """
+import atexit
 import json
 import os
 import re
@@ -210,20 +237,16 @@ SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, a=1, b=4)
 # the same scores under ksw_align_batch's names (the reference's)
 ALIGN_SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, a_sc=1, b_sc=4)
 DEVICE = "cuda"         # the device of the command-line and anchor phases
-ANCHOR_READS = 1024     # phase 11's batch (cut from 4096 for time)
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True)
-    return r.stdout.strip().splitlines()[0]
+ANCHOR_READS = 256      # phase 11's batch (cut from 4096 and 1024 for time)
+NO_DPX = ("KSW_NO_DPX",)  # the kernels' build without DPX instructions
 
 
 def build():
-    """Build K1, K2 and the oracle from this checkout, concurrently."""
+    """Build K1, K2 (and each without DPX) and the oracle from this
+    checkout, concurrently."""
     from tpubwa_torch import oracle
     from tpubwa_torch.ops import sw, sw_local
+    from tpubwa_torch.ops.cubuild import KernelLib
     errs = []
 
     def run(fn):
@@ -232,15 +255,21 @@ def build():
         except Exception as e:          # re-raised below
             errs.append(e)
     t0 = time.time()
+    # the variants without DPX instructions that phase 2's row latency
+    # times are built beside the rest
+    no_dpx = [KernelLib(m._KERNEL.src.stem, NO_DPX).build
+              for m in (sw, sw_local)]
     threads = [threading.Thread(target=run, args=(f,))
-               for f in (sw.build_lib, sw_local.build_lib, oracle.get_lib)]
+               for f in (sw.build_lib, sw_local.build_lib, oracle.get_lib,
+                         *no_dpx)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errs:
         raise errs[0]
-    print(f"build: K1 + K2 + oracle in {time.time() - t0:.1f} s", flush=True)
+    print(f"build: K1 + K2 (each also without DPX) + oracle in "
+          f"{time.time() - t0:.1f} s", flush=True)
     for k in (sw._KERNEL, sw_local._KERNEL):
         for line in ptxas_summary(k.ptxas_log):
             print(f"build: {k.src.name}: {line}", flush=True)
@@ -597,8 +626,7 @@ def row_latency(card: str):
     c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa: E731
     rng = np.random.default_rng(5)
     # the same sources built without the DPX instructions (plain max())
-    no_dpx = {m: KernelLib(m._KERNEL.src.stem, ("KSW_NO_DPX",))
-              for m in (sw, sw_local)}
+    no_dpx = {m: KernelLib(m._KERNEL.src.stem, NO_DPX) for m in (sw, sw_local)}
 
     def slope(launch, want, what):
         """us a row and us at zero rows of launch(rows), checked against
@@ -982,7 +1010,12 @@ def device_share(aln, batch, id0: int, card: str, paired: bool = False):
     time, the kernels that take most device time, the two hand-written
     kernels' device time, and K1's launches of the batch by shape with
     each shape's kernel time from the trace. A trace that shows no device
-    time prints "not measured"."""
+    time prints "not measured".
+
+    The trace records CUDA activity only and is read from the profiler's
+    raw event list: a batch launches 2-4 x 10^5 kernels, and building
+    torch.profiler's Python event tree over them (with host operators
+    recorded too) took minutes of the call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -992,54 +1025,49 @@ def device_share(aln, batch, id0: int, card: str, paired: bool = False):
     worker.ksw_extend = k1_recorder(real_k1, None, k1_log)
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             sam = (aln.align_pe if paired else aln.align_se)(batch, id0=id0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         worker.ksw_extend = real_k1
+    t_read = time.perf_counter()
+    # (start ns, duration ns, name) of every device event, in start order
+    kern = sorted((e.start_ns(), e.duration_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA)
+    t_read = time.perf_counter() - t_read
     want = aln.oracle.align_pe(batch, aln.opt, id0=id0)[0] if paired \
         else aln.oracle.align_se(batch, aln.opt, id0=id0)
     if sam != want:
         raise AssertionError("profiled batch SAM differs from the oracle")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
+    if not kern:
         print(f"device busy share: not measured (no device time in the "
               f"trace) [{card}]")
         return
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
+    busy, end = 0, 0
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us()
-    print(f"device busy share {busy / 1e6 / wall:.4f} of {wall * 1e3:.1f} ms"
+    for s, d, name in kern:
+        if s + d > end:
+            busy += s + d - max(s, end)
+            end = s + d
+        by_name[name] = by_name.get(name, 0) + d
+    print(f"device busy share {busy / 1e9 / wall:.4f} of {wall * 1e3:.1f} ms"
           f" (one {'PE' if paired else 'SE'} batch of {batch.n} reads under "
-          f"the profiler, "
-          f"{len(spans)} kernels) [{card}]", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
-        print(f"  device {us / 1e3:9.2f} ms  {name[:90]}", flush=True)
+          f"the profiler, {len(kern)} kernels; trace read in {t_read:.1f} s)"
+          f" [{card}]", flush=True)
+    for name, ns in sorted(by_name.items(), key=lambda x: -x[1])[:6]:
+        print(f"  device {ns / 1e6:9.2f} ms  {name[:90]}", flush=True)
     label = "profiled PE batch" if paired else "profiled SE batch"
-    for kern in ("ksw_extend", "ksw_local"):
-        us = sum(v for n, v in by_name.items() if kern in n)
-        print(f"{label}: {kern} kernels {us / 1e3:.3f} ms of device time "
+    for k in ("ksw_extend", "ksw_local"):
+        ns = sum(v for n, v in by_name.items() if k in n)
+        print(f"{label}: {k} kernels {ns / 1e6:.3f} ms of device time "
               f"[{card}]", flush=True)
-    k1_ev = sorted((e.time_range.start, e.time_range.elapsed_us())
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and "ksw_extend" in e.name)
     # one stream, so the trace's K1 kernels are in launch order
+    k1_ms = [d / 1e6 for _, d, name in kern if "ksw_extend" in name]
     print_k1_shapes(label, k1_log, "the batch", card,
-                    [us / 1e3 for _, us in k1_ev]
-                    if len(k1_ev) == len(k1_log) else None)
+                    k1_ms if len(k1_ms) == len(k1_log) else None)
 
 
 def smoke_dir() -> Path:
@@ -1387,11 +1415,12 @@ def anchor_phase(aln, card: str) -> dict:
                                          lens, aln.scfg)
     lut_seed()
     _, t_lut = timed(lut_seed)
-    n = 256
+    # every read of the batch against the oracle; the anchor's walk is the
+    # timed one above
+    n = batch.n
     o = aln.opt
-    outs = {"anchor": collect_smems_anchor(anc.didx, seqs[:n], lens[:n],
-                                           anc.scfg),
-            "per-end walk": collect_smems(anc.didx, seqs[:n], lens[:n],
+    outs = {"anchor": out_a,
+            "per-end walk": collect_smems(anc.didx, seqs, lens,
                                           SeedConfig(
                                               min_seed_len=o.min_seed_len,
                                               split_len=o.split_len,
@@ -1454,6 +1483,43 @@ def backward_search(step, holder, qs, dt, text: int):
     return torch.stack(ks), torch.stack(ss)
 
 
+def step_on_blocks(didx, seqs, lens, lut, cfg: dict, n: int) -> dict:
+    """worker1_step on each of n contiguous blocks of the batch in turn,
+    concatenated: what entry i of an n-entry mesh must give."""
+    import torch
+    from tpubwa_torch.dist.mesh import worker1_step
+    b = seqs.shape[0] // n
+    outs = [worker1_step(didx, seqs[i * b:(i + 1) * b],
+                         lens[i * b:(i + 1) * b], lut, **cfg)
+            for i in range(n)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def held_to_whole(out: dict, blocks: dict, whole: dict, what: str) -> str:
+    """Fail unless a mesh's outputs equal worker1_step on its blocks (all
+    13 keys) and, on every read that overflows in neither run, worker1_step
+    on the whole batch (tolerance 0); returns the line that says so."""
+    import torch
+    if blocks is not None:
+        bad = [k for k in whole if not torch.equal(out[k], blocks[k])]
+        if bad:
+            raise AssertionError(f"{what} differs from worker1_step on its "
+                                 f"blocks in {bad}")
+    kept = ~(out["overflow"] | whole["overflow"])
+    bad = [k for k in whole if not torch.equal(out[k][kept],
+                                               whole[k][kept])]
+    if bad:
+        raise AssertionError(f"{what}: reads that overflow in neither "
+                             f"run differ from the whole batch in {bad}")
+    moved = int((out["overflow"] & ~whole["overflow"]).sum())
+    back = int((whole["overflow"] & ~out["overflow"]).sum())
+    head = "equal to worker1_step on its blocks (tolerance 0) and, " \
+        if blocks is not None else "(tolerance 0), "
+    return (f"all 13 outputs {head}on the {int(kept.sum())} reads that "
+            f"overflow in neither run, equal to the whole batch; the split "
+            f"moved {moved} reads to overflow and {back} out of it")
+
+
 def dist_phase(aln, card: str) -> dict:
     """Phase 12: worker1 over a mesh of cards and of logical shards on
     cuda:0, the row-sharded index's routed probes and the histogram sum,
@@ -1487,31 +1553,6 @@ def dist_phase(aln, card: str) -> dict:
     # and on each block in turn (what entry i of a mesh must give: a dense
     # budget of the step is sized from its block's reads, so the split may
     # move reads to overflow, as the reference's shard_map does)
-    def on_blocks(n: int) -> dict:
-        b = batch.n // n
-        outs = [worker1_step(aln.didx, seqs[i * b:(i + 1) * b],
-                             lens[i * b:(i + 1) * b], aln.lut, **cfg)
-                for i in range(n)]
-        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-
-    def check(out: dict, blocks: dict, what: str) -> str:
-        bad = [k for k in whole if not torch.equal(out[k], blocks[k])]
-        if bad:
-            raise AssertionError(f"{what} differs from worker1_step on its "
-                                 f"blocks in {bad}")
-        kept = ~(out["overflow"] | whole["overflow"])
-        bad = [k for k in whole if not torch.equal(out[k][kept],
-                                                   whole[k][kept])]
-        if bad:
-            raise AssertionError(f"{what}: reads that overflow in neither "
-                                 f"run differ from the whole batch in {bad}")
-        moved = int((out["overflow"] & ~whole["overflow"]).sum())
-        back = int((whole["overflow"] & ~out["overflow"]).sum())
-        return (f"all 13 outputs equal to worker1_step on its blocks "
-                f"(tolerance 0) and, on the {int(kept.sum())} reads that "
-                f"overflow in neither, to the whole batch; the split moved "
-                f"{moved} reads to overflow and {back} out of it")
-
     worker1_step(aln.didx, seqs, lens, aln.lut, **cfg)       # warm
     whole, ms_whole, k1_whole = timed(
         lambda: worker1_step(aln.didx, seqs, lens, aln.lut, **cfg))
@@ -1524,7 +1565,8 @@ def dist_phase(aln, card: str) -> dict:
                        ("4 logical shards on cuda:0", Mesh((cuda0,) * 4))):
         blocks = whole
         if mesh.size > 1:
-            blocks, ms, k1 = timed(lambda: on_blocks(mesh.size))
+            blocks, ms, k1 = timed(lambda: step_on_blocks(
+                aln.didx, seqs, lens, aln.lut, cfg, mesh.size))
             print(f"dist: worker1_step on the {mesh.size} blocks in turn: "
                   f"{ms:.1f} ms, K1 launches {k1} [{card}]", flush=True)
             res[f"{name} blocks"] = (ms, k1)
@@ -1538,8 +1580,8 @@ def dist_phase(aln, card: str) -> dict:
                 raise AssertionError(f"worker1 over {name} ({call}) "
                                      f"launched K1 no time")
             print(f"dist: worker1_sharded over {name}, {call}: "
-                  f"{check(out, blocks, name)}; {ms:.1f} ms against "
-                  f"{ms_whole:.1f} ms; K1 launches {k1} [{card}]",
+                  f"{held_to_whole(out, blocks, whole, name)}; {ms:.1f} ms "
+                  f"against {ms_whole:.1f} ms; K1 launches {k1} [{card}]",
                   flush=True)
             res[f"{name} {call}"] = (ms, k1)
 
@@ -1626,6 +1668,9 @@ MIXED_READS = 1024      # reads of 76-250 bp in phase 13's mixed batch
 CLIP_READS = 64         # chimeric and adapter-clipped reads, each
 SCALE_MBP = 64          # phase 15's genome (chr20 size, BASELINE config 3)
 SCALE_READS = 8192      # phase 15's timed SE reads (2 batches of 4096)
+FULL_CALL_SCALE_READS = 4096   # ... in the full call (cut for time)
+SCALE_PE_PAIRS = 1024   # phase 15's PE row: pairs a batch (warm-up, timed)
+FULL_CALL_SCALE_PE_PAIRS = 512   # ... in the full call (cut for time)
 
 
 def count_k1(fn, log: list, first: list = None):
@@ -1769,20 +1814,6 @@ def long_phase(aln, card: str) -> dict:
     return dict(first=k1_first[0], k1=k1, bucket3=bucket3)
 
 
-def widen(aln):
-    """The aligner with its DeviceIndex (L2, sa_samples, ann_end) and its
-    k-mer table in int64, the width of a text of 2**31 or more."""
-    import dataclasses
-    import torch
-    from tpubwa_torch.seed.lut import KmerLUT
-    d = aln.didx
-    aln.didx = dataclasses.replace(
-        d, L2=d.L2.to(torch.int64), sa_samples=d.sa_samples.to(torch.int64),
-        ann_end=d.ann_end.to(torch.int64))
-    aln.lut = KmerLUT(aln.lut.k0, aln.lut.ksp.to(torch.int64))
-    return aln
-
-
 def int64_phase(aln, card: str) -> dict:
     """Phase 14: int64 positions on the card. A second aligner of the
     4.6 Mbp index, widened to int64, aligns phase 3's first timed batch
@@ -1792,6 +1823,7 @@ def int64_phase(aln, card: str) -> dict:
     import torch
     from tpubwa_torch.io import fastx
     from tpubwa_torch.ops import sw_local
+    from tpubwa_torch.tools.dryrun import widen
     t_phase = time.time()
     se = fastx.batch_reads(se_reads(aln.idx)[1], max_len=READ_LEN)
     pe = fastx.batch_reads(pe_reads(aln.idx)[1], max_len=PE_READ_LEN)
@@ -1802,7 +1834,8 @@ def int64_phase(aln, card: str) -> dict:
         t0 = time.perf_counter()
         t32[name] = (fn(), time.perf_counter() - t0)
     sam32, pe32 = t32["SE"][0], t32["PE"][0]
-    aln64 = widen(make_aligner())
+    aln64 = make_aligner()
+    aln64.didx, aln64.lut = widen(aln64.didx, aln64.lut)
     if aln64.didx.pos_dtype != torch.int64:
         raise AssertionError("the widened index is not int64")
     lib = aln64.oracle._lib
@@ -1852,6 +1885,37 @@ def start_scale_prepare():
          str(SCALE_READS), str(SCALE_MBP), "--prepare"], cwd=str(REPO),
         env=dict(os.environ, PYTHONPATH=str(REPO)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def start_bench_prepare():
+    """Build the 4.6 Mbp bench world's index and LUT caches in a process
+    of their own (host work only), beside phases 1-2 of the full call."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "from tpubwa_torch.tools import "
+         "bench_world; bench_world.prepare()"], cwd=str(REPO),
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def start_dryrun_prepare():
+    """Build phase 20's 2 Mbp index and LUT caches in a process of their
+    own (host work only), beside the phases before phase 15."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpubwa_torch.tools.dryrun", "--prepare"],
+        cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def wait_prepare(proc, what: str, card: str):
+    """Wait for a cache-building process; raise if it failed."""
+    t0 = time.time()
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {what} process exited "
+                             f"{proc.returncode}:\n{err[-3000:]}")
+    last = out.strip().splitlines()[-1:] or ["no output"]
+    print(f"{what}: caches built ({last[0]}), waited {time.time() - t0:.1f}"
+          f" s for them [{card}]", flush=True)
 
 
 def tier2_measure(aln, batch, card: str):
@@ -1914,12 +1978,13 @@ def scale_world(card: str, prep, phase: str):
     return g, sb.make_aligner(idx, SCALE_MBP, costs, "cuda"), costs
 
 
-def scale_phase(card: str, prep=None) -> dict:
+def scale_phase(card: str, prep=None, n_reads: int = SCALE_READS,
+                pe_pairs: int = SCALE_PE_PAIRS) -> dict:
     """Phase 15: the 64 Mbp genome (chr20 size, BASELINE config 3) through
     tools/scale_bench: the genome, index and LUT from their caches (built
-    by ``prep``, a running --prepare process, or here); 3 batches of 4096
-    SE reads, one to warm up and two timed and streamed, every line
-    byte-equal to the oracle; the PE row (1024 pairs, byte-equal to
+    by ``prep``, a running --prepare process, or here); a warm-up batch
+    of 4096 SE reads and n_reads more timed and streamed, every line
+    byte-equal to the oracle; the PE row (pe_pairs pairs, byte-equal to
     Oracle.align_pe, no rescue result missing); the tier-2 call's time
     and a stage split on a batch where tier 2 fires, with tier 2
     forced by a batch built for it when no timed batch opens its gate; K1
@@ -1935,11 +2000,11 @@ def scale_phase(card: str, prep=None) -> dict:
           f"{dbytes['index']}, LUT {dbytes['lut']} [{card}]", flush=True)
     k1_first, k1_log = [], []
     (se, batches), _ = count_k1(lambda: sb.se_row(
-        aln, g, SCALE_READS, SCALE_MBP, costs), k1_log, k1_first)
+        aln, g, n_reads, SCALE_MBP, costs), k1_log, k1_first)
     print(f"scale SE: {json.dumps(se)} [{card}]", flush=True)
     print_k1_shapes("scale", k1_log, f"the warm-up and the "
                     f"{len(batches)} timed batches", card)
-    if se["parity_mismatches"] or se["parity_lines_checked"] < SCALE_READS:
+    if se["parity_mismatches"] or se["parity_lines_checked"] < n_reads:
         raise AssertionError(f"scale SE: {se['parity_mismatches']} of "
                              f"{se['parity_lines_checked']} lines differ "
                              "from the oracle")
@@ -1983,7 +2048,7 @@ def scale_phase(card: str, prep=None) -> dict:
         return r
     rescue.ksw_local = recorder
     try:
-        pe = sb.pe_row(aln, g, SCALE_MBP)
+        pe = sb.pe_row(aln, g, SCALE_MBP, pe_pairs)
     finally:
         rescue.ksw_local = real
     print(f"scale PE: {json.dumps(pe)} [{card}]", flush=True)
@@ -2014,6 +2079,7 @@ FULL_CALL_VARIANTS = ({}, {"fm_dense": 8}, {"offdiag_dense": 4})
 # tune_budgets at 64 Mbp: each dense budget of the LUT walk relaxed 2x
 SCALE_VARIANTS = ({}, {"fm_dense": 8}, {"offdiag_dense": 2},
                   {"fm_dense": 8, "offdiag_dense": 2})
+FULL_CALL_SCALE_VARIANTS = SCALE_VARIANTS[:2]   # ... in the full call
 
 
 def check_cumulative(counts: dict, what: str):
@@ -2079,7 +2145,7 @@ def diag_bench(aln, card: str, variants=None) -> dict:
     return dict(caps=caps, tune=tune)
 
 
-def diag_scale_world(aln, g, card: str) -> dict:
+def diag_scale_world(aln, g, card: str, variants=SCALE_VARIANTS) -> dict:
     """Phase 16 at 64 Mbp: diag_scale and diag_tier2 on 4096 reads,
     classify_overflow on the first 2048 (fast) and every 16th read (full),
     the split of seeding overflow into cap- and dense-budget-driven reads
@@ -2158,7 +2224,7 @@ def diag_scale_world(aln, g, card: str) -> dict:
           flush=True)
     # which dense budget: worker1 with each relaxed (budgets are B*L //
     # fm_dense and B*L // offdiag_dense lanes)
-    tune = tune_budgets.tune_budgets(aln, batch, SCALE_VARIANTS, reps=1)
+    tune = tune_budgets.tune_budgets(aln, batch, variants, reps=1)
     for row in tune["variants"]:
         print(f"tune_budgets {SCALE_MBP} Mbp {row['variant']:24s} "
               f"w1={row['w1_ms']:7.1f} ms ovf={row['overflow']:5d}/"
@@ -2183,15 +2249,17 @@ def diag_scale_world(aln, g, card: str) -> dict:
     return dict(scale=ds, tier2=dt, split=split, oracle=orc, tune=tune)
 
 
-def diag_phase(aln, aln64, g, card: str, variants=None) -> dict:
+def diag_phase(aln, aln64, g, card: str, variants=None,
+               scale_variants=SCALE_VARIANTS) -> dict:
     """Phase 16: the overflow diagnostics (tools/diag_*.py,
     classify_overflow.py, tune_budgets.py) at 4.6 and 64 Mbp, K1's
-    launches counted from 0 and its first call recorded."""
+    launches counted from 0 and its first call recorded; tune_budgets
+    runs ``variants`` at 4.6 Mbp, ``scale_variants`` at 64 Mbp."""
     t_phase = time.time()
     first, log = [], []
     (bench, scale), k1 = count_k1(lambda: (
-        diag_bench(aln, card, variants), diag_scale_world(aln64, g, card)),
-        log, first)
+        diag_bench(aln, card, variants),
+        diag_scale_world(aln64, g, card, scale_variants)), log, first)
     no_reference_imported("phase 16's tools")
     print(f"phase 16: K1 launched {k1} times [{card}]", flush=True)
     if k1 <= 0:
@@ -2203,10 +2271,11 @@ def diag_phase(aln, aln64, g, card: str, variants=None) -> dict:
 
 
 PROFILE_REPS = 3        # phase 17: time_stages' and time_extend's reps
-FULL_CALL_REPS = 2      # ... in the full call (cut for time)
+FULL_CALL_REPS = 1      # ... in the full call (cut for time)
 PARITY_READS = 2048     # phase 17: parity's SE reads (2% / 0.2% errors)
-REHEARSAL_PAIRS = 3072  # phase 18: run_1m's pairs at 64 Mbp
-REHEARSAL_BATCH = 2048  # ... and its --batch-size (1024 pairs a batch)
+FULL_CALL_PE_PAIRS = 1024  # profile_pe's pairs in the full call (cut)
+REHEARSAL_PAIRS = 768   # phase 18: run_1m's pairs at 64 Mbp (cut from 3072)
+REHEARSAL_BATCH = 512   # ... and its --batch-size (256 pairs a batch)
 
 
 def tool_line(name: str, r: dict, card: str):
@@ -2215,9 +2284,10 @@ def tool_line(name: str, r: dict, card: str):
     print(f"{name}: {json.dumps(keep)} [{card}]", flush=True)
 
 
-def profile_tools(aln, card: str, reps: int) -> dict:
-    """Phase 17's tools on the 4.6 Mbp bench world; returns K1's first
-    kernel-row inputs and K2's first forward call's."""
+def profile_tools(aln, card: str, reps: int, pe_pairs: int) -> dict:
+    """Phase 17's tools on the 4.6 Mbp bench world (profile_pe on batches
+    of pe_pairs pairs); returns K1's first kernel-row inputs and K2's
+    first forward call's."""
     from tpubwa_torch.pair import rescue
     from tpubwa_torch.tools import (bench_world, parity, profile_finish,
                                     profile_pe, profile_phases, time_extend,
@@ -2253,7 +2323,7 @@ def profile_tools(aln, card: str, reps: int) -> dict:
         return real(*args, want_sub=want_sub, **kw)
     rescue.ksw_local = recorder
     try:
-        r = profile_pe.profile_pe(aln, PE_PAIRS)
+        r = profile_pe.profile_pe(aln, pe_pairs)
     finally:
         rescue.ksw_local = real
     profile_pe.report(r)
@@ -2271,14 +2341,16 @@ def profile_tools(aln, card: str, reps: int) -> dict:
     return dict(k1_args=k1_args[0], k2_first=k2_first[0])
 
 
-def profile_phase(aln, card: str, reps: int = PROFILE_REPS) -> dict:
+def profile_phase(aln, card: str, reps: int = PROFILE_REPS,
+                  pe_pairs: int = PE_PAIRS) -> dict:
     """Phase 17: the profiling tools and the parity spot check on the
     4.6 Mbp bench world, K1's and K2's launches counted from 0;
     time_stages and time_extend take the best of ``reps``."""
     from tpubwa_torch.ops import sw_local
     t_phase = time.time()
     sw_local.ksw_local.launches = 0
-    out, k1 = count_k1(lambda: profile_tools(aln, card, reps), [])
+    out, k1 = count_k1(lambda: profile_tools(aln, card, reps, pe_pairs),
+                       [])
     k2 = sw_local.ksw_local.launches
     no_reference_imported("phase 17's tools")
     print(f"phase 17: K1 launched {k1} times, K2 {k2} times [{card}]",
@@ -2325,6 +2397,136 @@ def rehearsal_phase(aln64, card: str) -> dict:
           f"{time.time() - t0:.1f} s); phase 18 took "
           f"{time.time() - t_phase:.1f} s [{card}]", flush=True)
     return out
+
+
+# the keys of the line bench.py prints (bench.py:118-131)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "workload",
+              "fallback_pct", "phase_s_per_batch", "device_busy_pct",
+              "pe_150bp_reads_per_s", "pe_fallback_pct", "setup_s")
+FULL_CALL_BENCH_TIMED = 1   # phase 19's timed SE batches in the full call
+DRYRUN_DEVICES = 8          # phase 20's mesh (the reference's __main__)
+
+
+def bench_phase(card: str, timed: int = None) -> dict:
+    """Phase 19: `python3 bench_torch.py` in a subprocess, as a user runs
+    it, with TPUBWA_BENCH_TIMED=timed (bench.py's 8 when None). Fails
+    unless its last line has every key of bench.py's line, both rates are
+    above 0 and its card is this card, or if a kernel of its timed runs
+    (K1 SE and PE, K2 PE) launched no time."""
+    import torch
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env.pop("TPUBWA_BENCH_BATCH", None)
+    env.pop("TPUBWA_BENCH_TIMED", None)
+    if timed is not None:
+        env["TPUBWA_BENCH_TIMED"] = str(timed)
+    r = subprocess.run([sys.executable, "bench_torch.py"], cwd=str(REPO),
+                       env=env, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    if missing:
+        raise AssertionError(f"bench_torch.py's line lacks {missing}")
+    if not (line["value"] > 0 and line["pe_150bp_reads_per_s"] > 0):
+        raise AssertionError(f"bench_torch.py's rates: {line['value']} SE, "
+                             f"{line['pe_150bp_reads_per_s']} PE")
+    if line.get("card") != card:
+        raise AssertionError(f"bench_torch.py ran on {line.get('card')!r}, "
+                             f"not on {card!r}")
+    m = re.search(r"SE ksw_extend (\d+); PE ksw_extend (\d+), ksw_local "
+                  r"(\d+)", r.stderr)
+    if not m or min(int(x) for x in m.groups()) <= 0:
+        raise AssertionError("bench_torch.py's timed runs launched a "
+                             f"kernel no time: {m and m.group(0)}")
+    for err in r.stderr.splitlines():
+        if err.startswith("# "):
+            print(f"bench: {err[2:]}", flush=True)
+    print(f"bench: {json.dumps(line)}", flush=True)
+    print(f"phase 19 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return dict(line=line, launches=tuple(int(x) for x in m.groups()))
+
+
+def dryrun_phase(card: str) -> dict:
+    """Phase 20: tools/dryrun.py on the card. entry() with n >= 1 on every
+    read; dryrun_multichip(8) with the LOAD test, which raises on any of
+    the reference's asserts; its first mesh call (the int64 tiny world)
+    held to worker1_step on the blocks and, on every read that overflows
+    in neither run, on the whole batch, and the LOAD test's mesh run to its
+    one-device run on the whole batch, on those reads (tolerance 0); the
+    file it wrote holds what it returned. Records K1's first call."""
+    import torch
+    from tpubwa_torch.tools import dryrun
+    t_phase = time.time()
+    fn, args = dryrun.entry("cuda")
+    score, n = fn(*args)
+    torch.cuda.synchronize()
+    if not bool((n >= 1).all()):
+        raise AssertionError(f"dryrun entry(): region counts {n.tolist()}")
+    print(f"dryrun: entry() on {n.numel()} reads: every read has a region "
+          f"(n = {n.tolist()}), scores {score[:, 0].tolist()} [{card}]",
+          flush=True)
+
+    calls = []
+    real = dryrun.worker1_sharded
+
+    def recorder(mesh, didx, seqs, lens, scfg, ccfg, ecfg, lut=None):
+        out = real(mesh, didx, seqs, lens, scfg, ccfg, ecfg, lut)
+        calls.append((mesh, didx, seqs, lens, lut,
+                      dict(scfg=scfg, ccfg=ccfg, ecfg=ecfg), out))
+        return out
+    path = REPO / "build" / "tpubwa_torch" / "SCALING_torch.json"
+    load = os.environ.get("TPUBWA_DRYRUN_LOAD")
+    os.environ["TPUBWA_DRYRUN_LOAD"] = "1"
+    dryrun.worker1_sharded = recorder
+    k1_first, k1_log = [], []
+    try:
+        scaling, k1 = count_k1(lambda: dryrun.dryrun_multichip(
+            DRYRUN_DEVICES, "cuda", out=path), k1_log, k1_first)
+    finally:
+        dryrun.worker1_sharded = real
+        if load is None:
+            os.environ.pop("TPUBWA_DRYRUN_LOAD")
+        else:
+            os.environ["TPUBWA_DRYRUN_LOAD"] = load
+    if json.loads(path.read_text()) != scaling:
+        raise AssertionError(f"{path} does not hold what dryrun returned")
+    if k1 <= 0:
+        raise AssertionError("dryrun_multichip launched K1 no time")
+    mesh, didx, seqs, lens, lut, cfg, out = calls[0]
+    if didx.pos_dtype != torch.int64 or mesh.size != DRYRUN_DEVICES:
+        raise AssertionError(f"dryrun's first call: {mesh.size} entries, "
+                             f"{didx.pos_dtype}")
+    whole = dryrun.worker1_step(didx, seqs, lens, lut, **cfg)
+    blocks = step_on_blocks(didx, seqs, lens, lut, cfg, mesh.size)
+    print(f"dryrun: worker1_sharded over {mesh.size} entries on "
+          f"{len(set(mesh.devices))} card(s), int64 tiny world of "
+          f"{seqs.shape[0]} reads: "
+          f"{held_to_whole(out, blocks, whole, 'the dry run')} [{card}]",
+          flush=True)
+    nb = dryrun.LOAD_PER_DEV * DRYRUN_DEVICES
+    load_runs = {m.size: o for m, _, s, _, _, _, o in calls
+                 if s.shape[0] == nb}
+    if set(load_runs) != {1, DRYRUN_DEVICES}:
+        raise AssertionError(f"the LOAD test ran meshes of {set(load_runs)}")
+    held = held_to_whole(load_runs[DRYRUN_DEVICES], None, load_runs[1],
+                         "the LOAD test")
+    print(f"dryrun: LOAD test, {nb} reads over {DRYRUN_DEVICES} entries "
+          f"against one: {held} [{card}]", flush=True)
+    print(f"dryrun: {json.dumps(scaling)}", flush=True)
+    print(f"dryrun: K1 launched {k1} times; phase 20 took "
+          f"{time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return dict(first=k1_first[0], k1=k1, scaling=scaling)
+
+
+def dryrun_entry(dry, card: str) -> tuple:
+    """Phase 6 for phase 20: K1 on the dry run's first call."""
+    return k1_entry("ksw_extend_dryrun", f"worker1 over {DRYRUN_DEVICES} "
+                    "mesh entries, int64 tiny world and the 2 Mbp LOAD test "
+                    "(phase 20)", dry["first"], dry["k1"], card)
 
 
 def profile_entries(prof, card: str) -> list:
@@ -2452,8 +2654,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    from tpubwa_torch.tools.scale_bench import card_line
     card = card_line()
     print(f"card: {card}", flush=True)
+    # the full call builds the bench world's caches beside phases 1-2
+    bprep = None if sys.argv[1:] else start_bench_prepare()
+    atexit.register(stop, bprep)
     timed_phase("1 (build)", build)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2504,6 +2710,16 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phases 17-18 only"}))
         return 0
+    if sys.argv[1:] == ["bench"]:
+        timed_phase("19 (bench)", bench_phase, card)
+        dry = timed_phase("20 (dryrun)", dryrun_phase, card)
+        e = dryrun_entry(dry, card)
+        print(json.dumps({"kernels": [kernel_entry(*e[:5], 0, e[5])]}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phases 19-20 only"}))
+        return 0
     if sys.argv[1:] == ["scale"]:
         prep = start_scale_prepare()
         phase = beside_build(prep, time.time())
@@ -2530,12 +2746,15 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build, parity and row latency only"}))
         return 0
+    wait_prepare(bprep, "bench world prepare", card)
     aln, k1_args, launches, rps = timed_phase("3-4 (e2e SE, stages)", e2e,
                                               card)
     k1_pe_args, k2_fwd, k2_rev, pe_k1, pe_k2, pe_rps = timed_phase(
         "5 (e2e PE)", pe_e2e, aln, card)
-    # the 64 Mbp caches build on the host while phases 7-14 run
+    # the 64 Mbp caches (and phase 20's 2 Mbp ones) build on the host
+    # while phases 7-14 run
     prep = start_scale_prepare()
+    dprep = start_dryrun_prepare()
     phase = beside_build(prep, time.time())
     try:
         t_new = time.time()
@@ -2547,14 +2766,21 @@ def main() -> int:
               f"{time.time() - t_new:.1f} s", flush=True)
         longr = phase("13 (long)", long_phase, aln, card)
         i64 = phase("14 (int64)", int64_phase, aln, card)
-        scale = timed_phase("15 (scale)", scale_phase, card, prep)
+        scale = timed_phase("15 (scale)", scale_phase, card, prep,
+                            FULL_CALL_SCALE_READS, FULL_CALL_SCALE_PE_PAIRS)
+        wait_prepare(dprep, "dryrun --prepare", card)
     finally:
         stop(prep)
+        stop(dprep)
     diag = timed_phase("16 (diag)", diag_phase, aln, scale["aln"],
-                       scale["g"], card, FULL_CALL_VARIANTS)
+                       scale["g"], card, FULL_CALL_VARIANTS,
+                       FULL_CALL_SCALE_VARIANTS)
     prof = timed_phase("17 (profile)", profile_phase, aln, card,
-                       FULL_CALL_REPS)
+                       FULL_CALL_REPS, FULL_CALL_PE_PAIRS)
     timed_phase("18 (rehearsal)", rehearsal_phase, scale["aln"], card)
+    bench = timed_phase("19 (bench)", bench_phase, card,
+                        FULL_CALL_BENCH_TIMED)
+    dry = timed_phase("20 (dryrun)", dryrun_phase, card)
     t6 = time.time()
     r1 = {}
     for path, args, n_l in (("SE", k1_args, launches),
@@ -2587,12 +2813,14 @@ def main() -> int:
             raise AssertionError("K2 differs from ksw_local_ref on the "
                                  "main-path inputs")
     new = new_path_entries(longr, i64, scale, card) + \
-        [diag_entry(diag, card)] + profile_entries(prof, card)
+        [diag_entry(diag, card)] + profile_entries(prof, card) + \
+        [dryrun_entry(dry, card)]
     print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
     # one entry per kernel and path: K1 on the SE and the PE path (other
     # shapes, its own launch count), K2's two template instances, then
     # the later slices' paths: K1 on the long, int64 and 64 Mbp paths, K2
-    # on the 64 Mbp PE row, K1 in phase 16, K1 and K2 in phase 17
+    # on the 64 Mbp PE row, K1 in phase 16, K1 and K2 in phase 17, K1 in
+    # phase 20
     kernels = [
         kernel_entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches,
                      worst, r1["SE"]),
@@ -2615,7 +2843,12 @@ def main() -> int:
           f"{scale['se']['value']} reads/s, PE {scale['pe']['value']} "
           f"reads/s, fallback {scale['se']['fallback_pct']}% (SE), "
           f"{scale['pe']['pe_fallback_pct']}% (PE); phase 16: "
-          f"{json.dumps(diag['scale']['split'])}")
+          f"{json.dumps(diag['scale']['split'])}; bench_torch.py "
+          f"({FULL_CALL_BENCH_TIMED} timed SE batches): SE "
+          f"{bench['line']['value']}, PE "
+          f"{bench['line']['pe_150bp_reads_per_s']} reads/s; dry run: "
+          f"sharding_overhead_eff "
+          f"{dry['scaling']['load_test']['sharding_overhead_eff']}")
     print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": device}))
     return 0

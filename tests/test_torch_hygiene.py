@@ -33,13 +33,36 @@ def test_import_pulls_in_no_jax_and_no_tpubwa():
             "tpubwa_torch.tools.time_stages, tpubwa_torch.tools.time_extend, "
             "tpubwa_torch.tools.profile_finish, "
             "tpubwa_torch.tools.profile_pe, tpubwa_torch.tools.parity, "
-            "tpubwa_torch.tools.run_1m\n"
+            "tpubwa_torch.tools.run_1m, tpubwa_torch.tools.dryrun\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpubwa.')) or m == 'tpubwa')\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_bench_torch_pulls_in_no_jax_and_no_tpubwa():
+    """bench_torch.py and every module its run imports."""
+    code = ("import sys\n"
+            "import bench_torch, tpubwa_torch.io.fastx, "
+            "tpubwa_torch.ops.sw, tpubwa_torch.ops.sw_local, "
+            "tpubwa_torch.pipeline, tpubwa_torch.tools.scale_bench\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'tpubwa.')) or m == 'tpubwa')\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("pattern", [r"\bjax\b", r"\btpubwa\."])
+def test_bench_torch_names_neither(pattern):
+    rx = re.compile(pattern, re.IGNORECASE)
+    hits = [f"bench_torch.py:{i}: {line.strip()}" for i, line in enumerate(
+        (REPO / "bench_torch.py").read_text().splitlines(), 1)
+        if rx.search(line)]
+    assert not hits, "\n".join(hits)
 
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"\btpubwa\."])
@@ -68,6 +91,18 @@ def test_aligner_without_device_needs_a_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Aligner(idx)
     assert Aligner(idx, device="cpu").device.type == "cpu"
+
+
+def test_dryrun_without_device_needs_a_card():
+    from tpubwa_torch.tools import dryrun
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["2"])
 
 
 def test_seed_impl_anchor_configs_equal_reference():

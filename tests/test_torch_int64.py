@@ -4,8 +4,6 @@ to int64 (the width of a text of 2**31 characters or more, GRCh38's) give
 every device stage the same values as int32, the packed transfer the same
 regions, and the SE and PE aligners the same SAM, byte for byte, equal to
 the oracle's too."""
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -17,7 +15,8 @@ from tpubwa_torch.index.builder import build_index
 from tpubwa_torch.io import fastx
 from tpubwa_torch.opts import MemOptions
 from tpubwa_torch.pipeline import Aligner
-from tpubwa_torch.seed.lut import KmerLUT, collect_smems_lut
+from tpubwa_torch.seed.lut import collect_smems_lut
+from tpubwa_torch.tools import dryrun
 from tpubwa_torch.utils import dna
 
 from test_torch_pipeline_pe import heavy_error_mates
@@ -26,11 +25,7 @@ from test_torch_pipeline_pe import heavy_error_mates
 def widen(aln: Aligner) -> Aligner:
     """The aligner with its DeviceIndex (L2, sa_samples, ann_end) and its
     k-mer table in int64, as chip_smoke.py's int64 phase widens it."""
-    d = aln.didx
-    aln.didx = dataclasses.replace(
-        d, L2=d.L2.to(torch.int64), sa_samples=d.sa_samples.to(torch.int64),
-        ann_end=d.ann_end.to(torch.int64))
-    aln.lut = KmerLUT(aln.lut.k0, aln.lut.ksp.to(torch.int64))
+    aln.didx, aln.lut = dryrun.widen(aln.didx, aln.lut)
     return aln
 
 

@@ -24,14 +24,14 @@ INDEL_RATE = 0.001
 READS_SEED = 7
 
 
-def get_index(build_dir: Path = BUILD):
+def get_index(build_dir: Path = BUILD, genome_len: int = GENOME_LEN):
     """The bench genome's FM-index, from its cache or built and cached."""
     from ..index.builder import FMIndex, build_index
     from ..utils import dna, genome
-    cache = Path(build_dir) / f"smoke_index_{GENOME_LEN}.npz"
+    cache = Path(build_dir) / f"smoke_index_{genome_len}.npz"
     if cache.exists():
         return FMIndex.load(cache)
-    g = genome.synthetic_genome(GENOME_LEN, seed=GENOME_SEED,
+    g = genome.synthetic_genome(genome_len, seed=GENOME_SEED,
                                 profile=genome.BACTERIAL)
     idx = build_index([("U00096_synth", dna.decode(g))])
     cache.parent.mkdir(parents=True, exist_ok=True)
@@ -39,17 +39,29 @@ def get_index(build_dir: Path = BUILD):
     return idx
 
 
-def lut_path(build_dir: Path = BUILD) -> Path:
-    return Path(build_dir) / f"smoke_lut_{GENOME_LEN}.npz"
+def lut_path(build_dir: Path = BUILD, genome_len: int = GENOME_LEN) -> Path:
+    return Path(build_dir) / f"smoke_lut_{genome_len}.npz"
 
 
-def make_aligner(device: str = "cuda", build_dir: Path = BUILD, **caps):
+def prepare(build_dir: Path = BUILD, genome_len: int = GENOME_LEN) -> None:
+    """Build the index and LUT caches on the host (no card needed), so
+    that a later make_aligner only loads them."""
+    from ..opts import MemOptions
+    from ..seed.lut import KmerLUT
+    KmerLUT.build(get_index(build_dir, genome_len),
+                  min_seed_len=MemOptions().min_seed_len,
+                  cache=lut_path(build_dir, genome_len), device="cpu")
+
+
+def make_aligner(device: str = "cuda", build_dir: Path = BUILD,
+                 genome_len: int = GENOME_LEN, **caps):
     """The bench aligner on ``device`` (the card unless the caller asks
     for the CPU), its LUT from the cache; ``caps`` as ``Aligner``'s."""
     from ..opts import MemOptions
     from ..pipeline import Aligner
-    return Aligner(get_index(build_dir), MemOptions(), device=device,
-                   lut_cache=lut_path(build_dir), **caps)
+    return Aligner(get_index(build_dir, genome_len), MemOptions(),
+                   device=device, lut_cache=lut_path(build_dir, genome_len),
+                   **caps)
 
 
 def reads(idx, n: int = BATCH, seed: int = READS_SEED):

@@ -29,6 +29,7 @@ import argparse
 import concurrent.futures as cf
 import json
 import resource
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -184,6 +185,20 @@ def require_card(device: str, prog: str) -> None:
         if not torch.cuda.is_available():
             raise RuntimeError(f"{prog}: no CUDA device is available; "
                                "pass --platform cpu to run on the host")
+
+
+def card_line(device="cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them, or "cpu"."""
+    import torch
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    r = subprocess.run(["nvidia-smi", "-i", str(device.index or 0),
+                        "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True)
+    return r.stdout.strip().splitlines()[0]
 
 
 def se_batch(g, n_reads: int, seed: int = 3):
