@@ -113,17 +113,17 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                byte-equal to the oracle; tier-1 overflow per batch and
                whether tier 2 fired (if it fired on no batch, a batch
                built from the overflow reads opens its gate); the tier-2
-               call's time and a stage split of that batch (tiers, finish,
-               the whole batch); the PE row (1024 pairs, 512 in the full
-               call, byte-equal to
+               call's time and, in the scale call, a stage split of that
+               batch (tiers, finish, the whole batch); the PE row (1024
+               pairs, 512 in the full call, byte-equal to
                Oracle.align_pe, no rescue result missing).
  16. diag    — the overflow diagnostics (tpubwa_torch/tools/diag_caps.py,
                tune_budgets.py, diag_scale.py, diag_tier2.py,
                classify_overflow.py) on the card: at 4.6 Mbp diag_caps on
                the bench batch of 4096 at the default caps and
-               tune_budgets' seeding-budget variants (three in the full
-               call: the base, fm_dense=8, offdiag_dense=4; the seven of
-               its default sweep in the diag call); at 64 Mbp, on
+               tune_budgets' seeding-budget variants (two in the full
+               call: the base and fm_dense=8; the seven of its default
+               sweep in the diag call); at 64 Mbp, on
                phase 15's aligner, diag_scale and diag_tier2 on 4096
                reads, classify_overflow on the first 2048 (SMEMs and
                seeds) and on every 16th read (also chains and regions),
@@ -149,7 +149,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                time_stages and time_extend (both engines' rows; one timed
                rep after the warm-up in the full call, best of 3 in the
                profile call) on 4096 reads, profile_finish on 4096 reads,
-               profile_pe on 2048 pairs (1024 in the full call), parity
+               profile_pe on 2048 pairs (512 in the full call), parity
                on 2048 reads (2% / 0.2% errors, seed 3);
                each prints its rows and a JSON line with the card; fails
                if a tool imported JAX or the reference package, parity
@@ -181,6 +181,22 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                build/tpubwa_torch/SCALING_torch.json. In the full call
                a `dryrun --prepare` process builds the 2 Mbp caches beside
                phases 7-14, as phase 15's --prepare does.
+ 21. stream  — the SE stream held to the order it replaced and to its
+               stages, on the same reads in the same call: (a)
+               align_se_stream (one thread, the reference's order), (b)
+               the former threaded order (this script's threaded_stream:
+               each batch's finish on one worker thread while the calling
+               thread dispatches the next worker1), (c) a loop of
+               align_se, (d) the stages in turn (_dispatch_se and a
+               synchronize, then _finish_se_dispatched, timed apart);
+               every variant's SAM byte-equal to the oracle's. In the
+               full call, between phases 3 and 4, one pass of (a), (b)
+               and (d) over phase 3's 2 timed batches; in the bench call,
+               after phase 19, the bench world's batches (4096 x 100 bp,
+               seed 7) after one warm-up, windows of 1, 2 and 8 timed
+               batches, 3 runs of each variant in turns (a b c d, a b c
+               d, ...); per variant and window the seconds a batch and
+               the reads/s (median [min, max]).
 Phases 7-20 run between phases 5 and 6, each from counts of its own;
 phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and 20 and
 on phase 17's time_extend kernel row, and K2 on the first forward call of
@@ -202,7 +218,8 @@ chip_smoke.py diag the build, the 64 Mbp --prepare and phase 16, with the
 kernels line of its one entry; python3 chip_smoke.py profile the build,
 the 64 Mbp --prepare and phases 17-18, with the kernels line of their 2
 entries; python3 chip_smoke.py bench the build and phases 19 (8 timed SE
-batches) and 20, with the kernels line of phase 20's entry.)
+batches), 21 (windows of 1, 2 and 8 batches, 3 runs a variant) and 20,
+with the kernels line of phase 20's entry.)
 """
 import atexit
 import json
@@ -364,21 +381,21 @@ def max_abs_diff(got, want) -> int:
         if got.numel() else 0
 
 
-def k1_measure(args, zdrop=100, kernel_reps=20, plain_reps=2, generic=False):
+def k1_measure(args, zdrop=100, kernel_reps=20, generic=False):
     """Run K1 and ksw_extend_ref on the same card tensors; returns a dict
     with the max abs difference, both times and the bound. The plain
-    version is timed over plain_reps runs after the one that gives the
-    values to compare, or, with plain_reps = 0, in that one. With ``generic``
-    the generic (shared-memory) instance is also held to the plain version
-    and timed on the same inputs, in turns with the instance the wrapper
-    picks (generic, picked, picked, generic)."""
+    version is timed in the run that gives the values to compare (one run
+    of a few hundred ms: repeats cost the call more than they tell). With
+    ``generic`` the generic (shared-memory) instance is also held to the
+    plain version and timed on the same inputs, in turns with the
+    instance the wrapper picks (generic, picked, picked, generic)."""
     import torch
     from tpubwa_torch.ops.sw import ksw_extend, ksw_extend_ref, launch_kernel
     q, ql, t, tl, h0, w, eb, valid = args
     kw = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=zdrop, a=1, b=4)
     got = ksw_extend(*args, **kw)
     stats, ref = {}, []
-    first_ms = time_ms(lambda: ref.append(
+    plain_ms = time_ms(lambda: ref.append(
         ksw_extend_ref(*args, **kw, stats=stats)), 0)
     want = ref[0]
     err = max_abs_diff(got, want)
@@ -391,8 +408,6 @@ def k1_measure(args, zdrop=100, kernel_reps=20, plain_reps=2, generic=False):
         ms = (ms + time_ms(lambda: ksw_extend(*args, **kw), kernel_reps)) / 2
         g2 = time_ms(lambda: launch_kernel(args, 0, **kw), kernel_reps)
         extra["generic_ms"] = (g1 + g2) / 2
-    plain_ms = time_ms(lambda: ksw_extend_ref(*args, **kw), plain_reps) \
-        if plain_reps else first_ms
     nbytes = sum(x.numel() * x.element_size() for x in args) + \
         got.numel() * got.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -455,7 +470,7 @@ def parity(card: str):
         c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
         args = (c(qs), c(qlen), c(ts), c(tlen), c(h0),
                 c([w] * n), c([5] * n), c(valid))
-        r = k1_measure(args, zdrop=zdrop, kernel_reps=5, plain_reps=0)
+        r = k1_measure(args, zdrop=zdrop, kernel_reps=5)
         worst = max(worst, r["max_abs_err"])
         print(f"parity N={n:5d} Q={Q:3d} T={T:4d} w={w:3d} zdrop={zdrop:3d}:"
               f" max_abs_err={r['max_abs_err']} (tolerance 0)"
@@ -474,7 +489,7 @@ def parity(card: str):
         c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
         args = (c(qs), c(qlen), c(ts), c(tlen), c(h0), c(w), c([5] * n),
                 c(valid))
-        r = k1_measure(args, zdrop=zdrop, kernel_reps=5, plain_reps=0,
+        r = k1_measure(args, zdrop=zdrop, kernel_reps=5,
                        generic=True)
         worst = max(worst, r["max_abs_err"])
         print(f"parity edge N={n:3d} Q={Q:3d} T={T:3d} zdrop={zdrop:3d} "
@@ -488,12 +503,11 @@ def parity(card: str):
     return worst
 
 
-def k2_measure(args, want_sub: bool, kernel_reps=20, plain_reps=2,
-               generic=False):
+def k2_measure(args, want_sub: bool, kernel_reps=20, generic=False):
     """Run K2 and ksw_local_ref on the same card tensors; returns a dict
     with the max abs difference, both times and the bound. The DP cells
     are what these inputs need: qlen x tlen summed over the valid tasks.
-    ``generic`` as in k1_measure."""
+    The plain version and ``generic`` as in k1_measure."""
     import torch
     from tpubwa_torch.ops.sw_local import (ksw_local, ksw_local_ref,
                                            launch_kernel)
@@ -501,7 +515,7 @@ def k2_measure(args, want_sub: bool, kernel_reps=20, plain_reps=2,
     kw = dict(SCORING, want_sub=want_sub)
     got = ksw_local(*args, **kw)
     ref = []
-    first_ms = time_ms(lambda: ref.append(ksw_local_ref(*args, **kw)), 0)
+    plain_ms = time_ms(lambda: ref.append(ksw_local_ref(*args, **kw)), 0)
     want = ref[0]
     err = max_abs_diff(got, want)
     extra = {}
@@ -513,8 +527,6 @@ def k2_measure(args, want_sub: bool, kernel_reps=20, plain_reps=2,
         ms = (ms + time_ms(lambda: ksw_local(*args, **kw), kernel_reps)) / 2
         g2 = time_ms(lambda: launch_kernel(args, 0, **kw), kernel_reps)
         extra["generic_ms"] = (g1 + g2) / 2
-    plain_ms = time_ms(lambda: ksw_local_ref(*args, **kw), plain_reps) \
-        if plain_reps else first_ms
     cells = int((ql.clamp(0, q.shape[1]).to(torch.int64)
                  * tl.clamp(0, t.shape[1]).to(torch.int64)
                  * (valid != 0)).sum())
@@ -555,7 +567,7 @@ def parity_k2(card: str):
     for n, Q, T in shapes:
         args = local_tasks(n, Q, T, dev)
         for want_sub in (True, False):
-            r = k2_measure(args, want_sub, kernel_reps=5, plain_reps=0)
+            r = k2_measure(args, want_sub, kernel_reps=5)
             worst = max(worst, r["max_abs_err"])
             print(f"parity K2 N={n:5d} Q={Q:3d} T={T:4d} "
                   f"want_sub={int(want_sub)}: max_abs_err={r['max_abs_err']}"
@@ -576,7 +588,7 @@ def parity_k2(card: str):
         c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
         args = (c(qs), c(qlen), c(ts), c(tlen), c([19] * n), c(valid))
         for want_sub in (True, False):
-            r = k2_measure(args, want_sub, kernel_reps=5, plain_reps=0,
+            r = k2_measure(args, want_sub, kernel_reps=5,
                            generic=True)
             worst = max(worst, r["max_abs_err"])
             print(f"parity K2 edge N={n:3d} Q={Q:3d} T={T:3d} want_sub="
@@ -765,13 +777,9 @@ def e2e(card: str):
     n = BATCH * TIMED_BATCHES
     rps = n / dt
     fb = aln.stats["fallback_reads"] / max(aln.stats["reads"], 1)
-    for k, (b, sam) in enumerate(zip(batches[1:], sams)):
-        want = aln.oracle.align_se(b, aln.opt, id0=BATCH * (k + 1))
-        if sam != want:
-            d, o = sam.split("\n"), want.split("\n")
-            bad = next(i for i, (x, y) in enumerate(zip(d, o)) if x != y)
-            raise AssertionError(f"batch {k + 1}: SAM differs from the "
-                                 f"oracle at line {bad}:\n{d[bad]}\n{o[bad]}")
+    wants = [aln.oracle.align_se(b, aln.opt, id0=BATCH * (k + 1))
+             for k, b in enumerate(batches[1:])]
+    check_stream(sams, wants, "phase 3's stream")
     print(f"e2e: {n} reads SAM byte-equal to the oracle; {rps:.1f} reads/s "
           f"over {TIMED_BATCHES} streamed batches of {BATCH} "
           f"({dt:.3f} s); fallback share {fb:.5f}; "
@@ -780,9 +788,27 @@ def e2e(card: str):
     if launches <= 0:
         raise AssertionError("the main path launched K1 no time")
     print_k1_shapes("e2e", k1_log, f"{TIMED_BATCHES} timed batches", card)
-    stages(aln, batches[1], BATCH, card)
-    device_share(aln, batches[2], 2 * BATCH, card)
-    return aln, recorded[0], launches, rps
+    return aln, recorded[0], launches, rps, (batches[1:], wants)
+
+
+def se_stages(aln, timed: list, card: str):
+    """Phase 4: the first of phase 3's timed batches stage by stage, and
+    the device busy share of the second under the profiler."""
+    stages(aln, timed[0], BATCH, card)
+    device_share(aln, timed[1], 2 * BATCH, card)
+
+
+def check_stream(sams: list, wants: list, what: str):
+    """Raise unless each batch's SAM equals the oracle's, byte for byte."""
+    if len(sams) != len(wants):
+        raise AssertionError(f"{what}: {len(sams)} SAM texts for "
+                             f"{len(wants)} batches")
+    for k, (sam, want) in enumerate(zip(sams, wants)):
+        if sam != want:
+            d, o = sam.split("\n"), want.split("\n")
+            bad = next(i for i, (x, y) in enumerate(zip(d, o)) if x != y)
+            raise AssertionError(f"{what}, batch {k}: SAM differs from the "
+                                 f"oracle at line {bad}:\n{d[bad]}\n{o[bad]}")
 
 
 def stepper(out: list):
@@ -1979,16 +2005,16 @@ def scale_world(card: str, prep, phase: str):
 
 
 def scale_phase(card: str, prep=None, n_reads: int = SCALE_READS,
-                pe_pairs: int = SCALE_PE_PAIRS) -> dict:
+                pe_pairs: int = SCALE_PE_PAIRS, split: bool = True) -> dict:
     """Phase 15: the 64 Mbp genome (chr20 size, BASELINE config 3) through
     tools/scale_bench: the genome, index and LUT from their caches (built
     by ``prep``, a running --prepare process, or here); a warm-up batch
     of 4096 SE reads and n_reads more timed and streamed, every line
     byte-equal to the oracle; the PE row (pe_pairs pairs, byte-equal to
     Oracle.align_pe, no rescue result missing); the tier-2 call's time
-    and a stage split on a batch where tier 2 fires, with tier 2
-    forced by a batch built for it when no timed batch opens its gate; K1
-    and K2 recorded on their first calls."""
+    and (with ``split``) a stage split on a batch where tier 2 fires,
+    with tier 2 forced by a batch built for it when no timed batch opens
+    its gate; K1 and K2 recorded on their first calls."""
     from tpubwa_torch.ops import sw_local
     from tpubwa_torch.pair import rescue
     from tpubwa_torch.tools import scale_bench as sb
@@ -2015,7 +2041,8 @@ def scale_phase(card: str, prep=None, n_reads: int = SCALE_READS,
     if fired:
         b, id0 = batches[fired[0]], fired[0] * sb.BATCH
         tier2_measure(aln, b, card)
-        stages(aln, b, id0, card, "scale stage")
+        if split:
+            stages(aln, b, id0, card, "scale stage")
     else:
         gb = gated_batch(aln, batches)
         aln.TIER2_MIN = 1
@@ -2075,7 +2102,7 @@ TUNE_REPS = 3                # tune_budgets: best of 3 steady worker1 calls
 # tune_budgets at 4.6 Mbp in the full call (cut from the seven of the
 # diag call for time): the base and each dense budget of the LUT walk
 # doubled (fm_dense 16 -> 8, offdiag_dense 8 -> 4)
-FULL_CALL_VARIANTS = ({}, {"fm_dense": 8}, {"offdiag_dense": 4})
+FULL_CALL_VARIANTS = ({}, {"fm_dense": 8})
 # tune_budgets at 64 Mbp: each dense budget of the LUT walk relaxed 2x
 SCALE_VARIANTS = ({}, {"fm_dense": 8}, {"offdiag_dense": 2},
                   {"fm_dense": 8, "offdiag_dense": 2})
@@ -2273,7 +2300,7 @@ def diag_phase(aln, aln64, g, card: str, variants=None,
 PROFILE_REPS = 3        # phase 17: time_stages' and time_extend's reps
 FULL_CALL_REPS = 1      # ... in the full call (cut for time)
 PARITY_READS = 2048     # phase 17: parity's SE reads (2% / 0.2% errors)
-FULL_CALL_PE_PAIRS = 1024  # profile_pe's pairs in the full call (cut)
+FULL_CALL_PE_PAIRS = 512   # profile_pe's pairs in the full call (cut)
 REHEARSAL_PAIRS = 768   # phase 18: run_1m's pairs at 64 Mbp (cut from 3072)
 REHEARSAL_BATCH = 512   # ... and its --batch-size (256 pairs a batch)
 
@@ -2539,6 +2566,142 @@ def profile_entries(prof, card: str) -> list:
                      card)]
 
 
+STREAM_WINDOWS = (1, 2, 8)   # phase 21's windows of timed SE batches
+STREAM_REPS = 3              # ... each variant's runs of a window, in turns
+STREAM_VARIANTS = {
+    "a": "align_se_stream (one thread, the reference's order)",
+    "b": "threaded stream (the finish on one worker thread)",
+    "c": "align_se loop",
+    "d": "stages in turn (_dispatch_se + sync, then the finish)",
+}
+
+
+def threaded_stream(aln, batches, id0: int, depth: int = 2):
+    """The SE stream's former order, kept here only to be timed beside
+    align_se_stream: each batch's finish (the download, tiers 2 and 3,
+    the native finish) runs on one worker thread while the calling thread
+    dispatches the next batch's worker1; up to ``depth`` batches are in
+    flight."""
+    import concurrent.futures as cf
+    pending, n = [], id0
+    with cf.ThreadPoolExecutor(max_workers=1) as ex:
+        for b in batches:
+            parts = aln._dispatch_se(b)
+            pending.append(ex.submit(aln._finish_se_dispatched, b, parts, n))
+            n += b.n
+            if len(pending) >= depth:
+                yield pending.pop(0).result()
+        for fut in pending:
+            yield fut.result()
+
+
+def stream_variant(aln, v: str, batches, id0: int, split: list) -> list:
+    """Phase 21's variant ``v`` over the batches; returns the SAM texts.
+    Variant d appends each batch's (worker1 s, finish s) to ``split``."""
+    import torch
+    if v == "a":
+        return list(aln.align_se_stream(batches, id0=id0))
+    if v == "b":
+        return list(threaded_stream(aln, batches, id0))
+    out, n = [], id0
+    for b in batches:
+        if v == "c":
+            out.append(aln.align_se(b, id0=n))
+        else:
+            t0 = time.perf_counter()
+            parts = aln._dispatch_se(b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out.append(aln._finish_se_dispatched(b, parts, n))
+            torch.cuda.synchronize()
+            split.append((t1 - t0, time.perf_counter() - t1))
+        n += b.n
+    return out
+
+
+def spread(xs: list) -> str:
+    """median [min, max] of the values."""
+    import statistics
+    return f"{statistics.median(xs):.4f} [{min(xs):.4f}, {max(xs):.4f}]"
+
+
+def stream_phase(aln, batches, wants, id0: int, card: str, windows,
+                 reps: int, variants: str = "abcd") -> dict:
+    """Phase 21: the SE stream against the order it replaced and against
+    its stages, on the same batches in the same call. For each window of
+    w timed batches (the first w of ``batches``, whose oracle SAMs are
+    ``wants``), ``reps`` rounds of the variants in turns (a b c d, a b c
+    d, ...), each between two synchronizes; every variant's SAM must be
+    byte-equal to the oracle's. Prints, per variant and window, the
+    seconds a batch and the reads/s (median [min, max]) and the card's
+    reserved memory after the runs; for variant d also worker1's and
+    the finish's seconds a batch. Returns {(variant, window): [s a
+    batch, ...]}."""
+    import torch
+    if len(batches) < max(windows):
+        raise AssertionError(f"phase 21: {len(batches)} batches for a "
+                             f"window of {max(windows)}")
+    t_phase = time.time()
+    secs, mem, splits = {}, {}, {}
+    for w in windows:
+        for _ in range(reps):
+            for v in variants:
+                split = splits.setdefault((v, w), [])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sams = stream_variant(aln, v, batches[:w], id0, split)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                check_stream(sams, wants[:w], f"phase 21 variant {v}, "
+                             f"window {w}")
+                secs.setdefault((v, w), []).append(dt / w)
+                mem.setdefault((v, w), []).append(
+                    torch.cuda.memory_reserved())
+    n = batches[0].n
+    for w in windows:
+        for v in variants:
+            s = secs[(v, w)]
+            print(f"stream {v} window {w}: {spread(s)} s a batch, "
+                  f"{spread([n / x for x in s])} reads/s over {len(s)} "
+                  f"runs of {w} x {n} reads, SAM byte-equal; reserved "
+                  f"{min(mem[(v, w)]) / 2**20:.0f}-"
+                  f"{max(mem[(v, w)]) / 2**20:.0f} MiB; "
+                  f"{STREAM_VARIANTS[v]} [{card}]", flush=True)
+            if v == "d":
+                sp = splits[(v, w)]
+                print(f"stream d window {w}: worker1 "
+                      f"{spread([a for a, _ in sp])} s, finish "
+                      f"{spread([b for _, b in sp])} s a batch over "
+                      f"{len(sp)} batches [{card}]", flush=True)
+    print(f"phase 21 took {time.time() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return secs
+
+
+def bench_stream_phase(card: str) -> dict:
+    """Phase 21 in the bench call: the bench world's SE batches as phase
+    3 and bench_torch.py make them (4096 x 100 bp, seed 7), one warm-up
+    batch through align_se, then every variant over windows of 1, 2 and
+    8 timed batches, 3 runs each in turns."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    aln = make_aligner()
+    fwd = aln.idx.get_seq(0, aln.idx.l_pac).astype(np.uint8)
+    w = max(STREAM_WINDOWS)
+    n_reads = BATCH * (w + 1)
+    recs = fastx.simulate_reads(fwd, n_reads, read_len=READ_LEN,
+                                error_rate=0.01, indel_rate=0.001, seed=7)
+    batches = [fastx.batch_reads(recs[i:i + BATCH], max_len=READ_LEN)
+               for i in range(0, n_reads, BATCH)]
+    check_stream([aln.align_se(batches[0], id0=0)],
+                 [aln.oracle.align_se(batches[0], aln.opt, id0=0)],
+                 "phase 21 warm-up")
+    wants = [aln.oracle.align_se(b, aln.opt, id0=BATCH * (k + 1))
+             for k, b in enumerate(batches[1:])]
+    return stream_phase(aln, batches[1:], wants, BATCH, card,
+                        STREAM_WINDOWS, STREAM_REPS)
+
+
 def k1_entry(name: str, path: str, args, n_l: int, card: str) -> tuple:
     """K1 on a path's first call (``args``), held to its plain version and
     timed beside its bound; ``n_l`` is the path's launch count."""
@@ -2712,13 +2875,15 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["bench"]:
         timed_phase("19 (bench)", bench_phase, card)
+        # after phase 19's subprocess has built the bench world's caches
+        timed_phase("21 (stream)", bench_stream_phase, card)
         dry = timed_phase("20 (dryrun)", dryrun_phase, card)
         e = dryrun_entry(dry, card)
         print(json.dumps({"kernels": [kernel_entry(*e[:5], 0, e[5])]}))
         print(f"{card}")
         print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
         print(json.dumps({"ok": True, "device": device,
-                          "phases": "build and phases 19-20 only"}))
+                          "phases": "build and phases 19-21 only"}))
         return 0
     if sys.argv[1:] == ["scale"]:
         prep = start_scale_prepare()
@@ -2747,8 +2912,13 @@ def main() -> int:
                           "phases": "build, parity and row latency only"}))
         return 0
     wait_prepare(bprep, "bench world prepare", card)
-    aln, k1_args, launches, rps = timed_phase("3-4 (e2e SE, stages)", e2e,
-                                              card)
+    aln, k1_args, launches, rps, (timed_se, wants) = timed_phase(
+        "3 (e2e SE)", e2e, card)
+    # phase 21, one pass over phase 3's timed batches, before any build
+    # process runs beside it and before phase 4's profiler trace
+    stream = timed_phase("21 (stream)", stream_phase, aln, timed_se, wants,
+                         BATCH, card, (TIMED_BATCHES,), 1, "abd")
+    timed_phase("4 (stages)", se_stages, aln, timed_se, card)
     k1_pe_args, k2_fwd, k2_rev, pe_k1, pe_k2, pe_rps = timed_phase(
         "5 (e2e PE)", pe_e2e, aln, card)
     # the 64 Mbp caches (and phase 20's 2 Mbp ones) build on the host
@@ -2767,7 +2937,8 @@ def main() -> int:
         longr = phase("13 (long)", long_phase, aln, card)
         i64 = phase("14 (int64)", int64_phase, aln, card)
         scale = timed_phase("15 (scale)", scale_phase, card, prep,
-                            FULL_CALL_SCALE_READS, FULL_CALL_SCALE_PE_PAIRS)
+                            FULL_CALL_SCALE_READS, FULL_CALL_SCALE_PE_PAIRS,
+                            False)
         wait_prepare(dprep, "dryrun --prepare", card)
     finally:
         stop(prep)
@@ -2835,6 +3006,9 @@ def main() -> int:
          for name, path, src, line, n_l, m in new]
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
+    print("stream s a batch over phase 3's batches: " + ", ".join(
+        f"{v} {stream[(v, TIMED_BATCHES)][0]:.4f}" for v in "abd") +
+        f" [{card}]")
     print(f"e2e reads/s: SE {rps:.1f}, PE {pe_rps:.1f}; CLI: "
           f"{cli_res['se']['line'].split('] ')[1]} (SE), "
           f"{cli_res['pe']['line'].split('] ')[1]} (PE); anchor seed stage "

@@ -13,6 +13,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 import bench_torch
 
 REPO = Path(__file__).resolve().parents[1]

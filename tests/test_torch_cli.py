@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 import tpubwa.cli as jcli
 from tpubwa.io import fastx as jfastx
 from tpubwa.io import sam as jsam

@@ -7,6 +7,7 @@ import os
 
 import pytest
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa_torch.ops import cubuild, sw, sw_local
 
 

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.chain import device as jchain
 from tpubwa.extend import worker as jworker
 from tpubwa.pipeline import Aligner as JAligner

@@ -12,6 +12,7 @@ dense-budget-driven reads."""
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.index.builder import build_index as j_build_index
 from tpubwa.oracle import Oracle as JOracle
 from tpubwa.opts import MemOptions as JMemOptions

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.pipeline import Aligner as JAligner
 from tpubwa.pipeline import configs_from_opts as jconfigs
 from tpubwa_torch.pipeline import Aligner

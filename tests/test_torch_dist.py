@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.dist import mesh as jmesh
 from tpubwa.index.builder import build_index
 from tpubwa.index.device import DeviceIndex as JDeviceIndex

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import __graft_entry__ as ref
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.utils import genome as jgenome
 from tpubwa_torch.tools import dryrun
 

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
+
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "tpubwa_torch"
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.index import device as jdev
 from tpubwa.index.builder import FMIndex as JFMIndex, build_index
 from tpubwa.utils import dna

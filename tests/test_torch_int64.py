@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa_torch.chain.device import (chain_filter, chain_seeds,
                                        seeds_from_smems)
 from tpubwa_torch.extend.worker import extend_chains

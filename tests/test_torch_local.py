@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.extend.jax_extend import ksw_local_batch
 from tpubwa.ops.sw_pallas import ksw_local_pallas
 from tpubwa.pair.rescue import _scmat_tuple

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch.distributed as dist
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 import tpubwa.cli as jcli
 from tpubwa.dist import multihost as jmultihost
 from tpubwa_torch import cli

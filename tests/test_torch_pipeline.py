@@ -6,10 +6,13 @@ N-containing reads through Aligner(..., device="cpu").align_se and
 align_se_stream. Mixed-length batches and the big-caps tiers have files of
 their own (test_torch_pipeline_buckets.py, test_torch_pipeline_tiers.py).
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.index.builder import build_index
 from tpubwa.pipeline import Aligner as JAligner
 from tpubwa.utils import dna
@@ -76,14 +79,85 @@ def test_se_sam_equals_tpubwa_and_oracle(world, jaln):
 
 def test_stream_equals_align_se(world):
     jidx, aln, fwd = world
-    recs = fastx.simulate_reads(fwd[:12000], 30, read_len=100,
-                                error_rate=0.02, seed=5)
-    full = aln.align_se(fastx.batch_reads(recs), id0=0)
-    batches = [fastx.batch_reads(recs[i:i + 10]) for i in range(0, 30, 10)]
+    whole, batches = stream_reads(fwd)
+    full = aln.align_se(whole, id0=0)
     assert "".join(aln.align_se_stream(batches, id0=0)) == full
     # explicit (batch, id0) items leave the numbering to the caller
     items = [(b, 10 * k) for k, b in enumerate(batches)]
     assert "".join(aln.align_se_stream(items, depth=1)) == full
+
+
+def stream_reads(fwd):
+    """30 reads as one batch and as the 3 ten-read batches of the stream
+    tests."""
+    recs = fastx.simulate_reads(fwd[:12000], 30, read_len=100,
+                                error_rate=0.02, seed=5)
+    return fastx.batch_reads(recs), [fastx.batch_reads(recs[i:i + 10])
+                                     for i in range(0, 30, 10)]
+
+
+def record_stream(monkeypatch, cls, batches, log, dispatch, finish):
+    """Replace cls's _dispatch_se and _finish_se_dispatched with recorders
+    that log (call, batch index, id0, thread), then return
+    dispatch(self, k, batch) / finish(self, k, batch, parts, id0) for the
+    batch of index k."""
+    index = {id(b): k for k, b in enumerate(batches)}
+
+    def rec_dispatch(self, b):
+        log.append(("dispatch", index[id(b)], None, threading.get_ident()))
+        return dispatch(self, index[id(b)], b)
+
+    def rec_finish(self, b, parts, id0):
+        log.append(("finish", index[id(b)], id0, threading.get_ident()))
+        return finish(self, index[id(b)], b, parts, id0)
+    monkeypatch.setattr(cls, "_dispatch_se", rec_dispatch)
+    monkeypatch.setattr(cls, "_finish_se_dispatched", rec_finish)
+
+
+@pytest.fixture(scope="module")
+def port_calls():
+    """The port's real _dispatch_se and _finish_se_dispatched results on
+    the stream batches, by batch index (and id0), shared by the depths of
+    the order test."""
+    return {}
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_stream_order_and_thread_equal_reference(world, jaln, monkeypatch,
+                                                 port_calls, depth):
+    """F9: the port's align_se_stream dispatches and finishes the batches
+    in the reference's sequence, every call on the calling thread. The
+    reference's order is its stream's control flow, recorded with a finish
+    that returns the oracle's SAM of the batch at the id0 it was given (so
+    no new batch shape is compiled); the port's recorders call its real
+    methods (once a batch over the depths)."""
+    jidx, aln, fwd = world
+    whole, batches = stream_reads(fwd)
+    real_d, real_f = Aligner._dispatch_se, Aligner._finish_se_dispatched
+
+    def port_dispatch(self, k, b):
+        if k not in port_calls:
+            port_calls[k] = real_d(self, b)
+        return port_calls[k]
+
+    def port_finish(self, k, b, parts, id0):
+        if (k, id0) not in port_calls:
+            port_calls[k, id0] = real_f(self, b, parts, id0)
+        return port_calls[k, id0]
+    jlog, log = [], []
+    record_stream(monkeypatch, JAligner, batches, jlog,
+                  lambda self, k, b: None,
+                  lambda self, k, b, parts, id0: aln.oracle.align_se(
+                      b, aln.opt, id0=id0))
+    record_stream(monkeypatch, Aligner, batches, log, port_dispatch,
+                  port_finish)
+    want = "".join(jaln.align_se_stream(batches, id0=0, depth=depth))
+    got = "".join(aln.align_se_stream(batches, id0=0, depth=depth))
+    assert [e[:3] for e in log] == [e[:3] for e in jlog]
+    assert len(log) == 2 * len(batches)
+    me = threading.get_ident()
+    assert [e[3] for e in log] == [me] * len(log)
+    assert got == want == aln.oracle.align_se(whole, aln.opt, id0=0)
 
 
 def test_header_and_packing_roundtrip(world, jaln):

@@ -10,6 +10,7 @@ reads overflow every device tier and take their regions from the oracle.
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.index.builder import build_index
 from tpubwa.pipeline import Aligner as JAligner
 from tpubwa.utils import dna

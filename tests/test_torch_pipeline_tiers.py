@@ -9,6 +9,7 @@ the oracle there."""
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.index.builder import build_index
 from tpubwa.pipeline import Aligner as JAligner
 from tpubwa.utils import dna

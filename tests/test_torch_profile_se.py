@@ -1,18 +1,17 @@
-"""tpubwa_torch's profiling and rehearsal tools (tools/profile_phases.py,
-time_stages.py, time_extend.py, profile_finish.py, profile_pe.py,
-parity.py, run_1m.py) on the CPU at a tiny size: each runs to its end,
-prints the reference script's row names, and its counts equal what the
-reference script computes on the same reads through the reference
-package on the CPU: the seeding overflow and SAM line count, every prefix
-row's checksum a draw (the read seeds drawn as the port's tool draws
-them, where the script draws from os.urandom), the candidate total and
-most a read, the 1- and 2-thread finish SAMs, the rescue task count.
-parity passes on a clean batch and fails when one line of the oracle's
-SAM is altered; run_1m's resumed run starts past batch 0 and its merged
-shards equal an uninterrupted run. Without a card every tool raises
-unless --platform cpu is given."""
+"""tpubwa_torch's single-end profiling tools (tools/profile_phases.py,
+time_stages.py, time_extend.py, profile_finish.py) on the CPU at a tiny
+size: each runs to its end, prints the reference script's row names, and
+its counts equal what the reference script computes on the same reads
+through the reference package on the CPU: the seeding overflow and SAM
+line count, every prefix row's checksum a draw (the read seeds drawn as
+the port's tool draws them, where the script draws from os.urandom), the
+candidate total and most a read, the 1- and 2-thread finish SAMs. The
+reference's calls share two compiled shapes, its stage chain and its
+packed worker1 on SE_READS x 100 bp. Without a card every tool raises
+unless --platform cpu is given. profile_pe is held in
+test_torch_profile_pe.py, parity and run_1m in
+test_torch_profile_rehearsal.py."""
 import concurrent.futures as cf
-import ctypes as C
 
 import jax
 import jax.numpy as jnp
@@ -20,24 +19,19 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.chain import device as jchain
-from tpubwa.dist.mesh import pe_hist_psum as j_pe_hist_psum
-from tpubwa.dist.multihost import hist_allreduce as j_hist_allreduce
 from tpubwa.extend import worker as jworker
 from tpubwa.index.builder import build_index
-from tpubwa.opts import MemOptions as JMemOptions
-from tpubwa.oracle import to_copt as j_to_copt
 from tpubwa.pipeline import Aligner as JAligner
 from tpubwa.seed import lut as jlut
 from tpubwa_torch.index.builder import FMIndex
 from tpubwa_torch.pipeline import Aligner
-from tpubwa_torch.tools import (bench_world, parity, profile_finish,
-                                profile_pe, profile_phases, run_1m,
+from tpubwa_torch.tools import (bench_world, profile_finish, profile_phases,
                                 time_extend, time_stages)
 from tpubwa_torch.utils import dna, genome
 
 SE_READS = 32
-PE_PAIRS = 32
 
 
 @pytest.fixture(scope="module")
@@ -111,8 +105,11 @@ def ref_row(jaln, batch, k: int) -> int:
                                  jnp.ones((batch.n,), jnp.int32)))
     if k == len(time_stages.ROWS) - 1:
         # the script's packed row is _make_packed with the aligner's
-        # configs, the function worker1_packed runs at this read length
-        return ref_csum(jaln.worker1_packed(seqs, lens))
+        # configs, the function worker1_packed runs at this read length;
+        # uint8 reads, as align_se passes them, reuse its compiled call
+        # (the packed call widens them to int32 first)
+        return ref_csum(jaln.worker1_packed(jnp.asarray(batch.seqs),
+                                            jnp.asarray(batch.lens)))
     sm, sd, ch, flt, st = ref_stages(jaln, batch)
     return ref_csum((sm, sd, ch, (ch, flt), st)[k - len(cuts)])
 
@@ -209,106 +206,8 @@ def test_profile_finish_sams_equal_reference(world, capsys):
     assert r["regs"] == len(flat2) and r["ovf"] == int(ovf2.sum())
 
 
-def test_parity_passes_and_fails(world, capsys):
-    aln, _ = world
-    r = parity.parity(aln, SE_READS)
-    assert r["differ"] == 0 and r["records"] >= SE_READS
-    assert parity.report(r) == 0
-    assert "PASS" in capsys.readouterr().out
-    real = aln.oracle.align_se
-
-    def altered(*a, **kw):
-        lines = real(*a, **kw).split("\n")
-        f = lines[3].split("\t")
-        f[3] = str(int(f[3]) + 1)               # one POS off by one
-        lines[3] = "\t".join(f)
-        return "\n".join(lines)
-    aln.oracle.align_se = altered
-    try:
-        r = parity.parity(aln, SE_READS)
-    finally:
-        del aln.oracle.align_se
-    assert r["differ"] == 1 and len(r["first"]) == 1
-    assert parity.report(r) == 1
-    out = capsys.readouterr().out
-    assert "DEV:" in out and "ORC:" in out and "FAIL: 1/" in out
-
-
-def ref_rescue_tasks(jaln, batch) -> int:
-    """scripts/profile_pe.py's task count through the reference."""
-    buf = np.asarray(jaln.worker1_packed(jnp.asarray(batch.seqs),
-                                         jnp.asarray(batch.lens)))
-    n, ovf, l_rep, flat = jaln._unpack_host(buf, batch.n)
-    if ovf.any():
-        n, ovf, l_rep, flat = jaln._tier2(batch, n, ovf, l_rep, flat)
-    lib = jaln.oracle._lib
-    copt = j_to_copt(jaln.opt.replace(flag=jaln.opt.flag | JMemOptions.F_PE))
-    seqs_h = np.ascontiguousarray(batch.seqs, dtype=np.uint8)
-    lens_h = np.ascontiguousarray(batch.lens, dtype=np.int32)
-    flat_h = np.ascontiguousarray(flat.astype(np.int64))
-    n_h = np.ascontiguousarray(n.astype(np.int32))
-    lrep_h = np.ascontiguousarray(l_rep.astype(np.int32))
-    n_pairs = batch.n // 2
-    dirs = np.zeros(max(n_pairs, 1), np.int32)
-    isz = np.zeros(max(n_pairs, 1), np.int64)
-    lib.tb_pe_isize(jaln.oracle._h, C.byref(copt), seqs_h, lens_h, batch.n,
-                    seqs_h.shape[1], flat_h, n_h, lrep_h, dirs, isz)
-    hist = j_pe_hist_psum(jaln._pe_mesh(), dirs[:n_pairs], isz[:n_pairs],
-                          jaln.opt.max_ins)
-    hist_h = np.ascontiguousarray(j_hist_allreduce(hist), dtype=np.int64)
-    rowsp = C.POINTER(C.c_int64)()
-    return int(lib.tb_pe_rescue_tasks(
-        jaln.oracle._h, C.byref(copt), seqs_h, lens_h, batch.n,
-        seqs_h.shape[1], flat_h, n_h, lrep_h,
-        hist_h.ctypes.data_as(C.c_void_p), jaln.opt.max_ins, 0,
-        C.byref(rowsp)))
-
-
-def test_profile_pe_counts_equal_reference(world, capsys):
-    aln, jaln = world
-    r = profile_pe.profile_pe(aln, PE_PAIRS)
-    profile_pe.report(r)
-    out = capsys.readouterr().out
-    for name in profile_pe.STEPS[:3] + ("native_isize", "pestat_psum_device",
-                                        "native_pair_sam", "n_rescue_tasks",
-                                        "sum_ms", "pe_stream_reads_per_s"):
-        assert f"'{name}'" in out
-    want = ref_rescue_tasks(jaln, profile_pe.pairs_batch(aln, PE_PAIRS, 2))
-    assert r["n_rescue_tasks"] == want > 0
-    assert "rescue_kernel" in r
-    assert r["rescue_results_missing"] == 0
-
-
-def test_run_1m_kill_and_resume(tmp_path):
-    """A tiny world prepared as scale_bench prepares it; batches of 4
-    pairs; killed once 2 batches are done; the resumed run starts past
-    batch 0 and the merged shards equal an uninterrupted run in this
-    process."""
-    from tpubwa_torch.io import fastx
-    from tpubwa_torch.tools import scale_bench as sb
-    mbp, pairs, bs = 0.05, 40, 8
-    sb.prepare(mbp, {}, build_dir=tmp_path)
-    out = run_1m.run_1m(pairs, 0.0, mbp, bs, "cpu", build_dir=tmp_path)
-    assert out["phase1_killed"] and out["phase1_rc"] == -9
-    assert out["phase2_rc"] == 0
-    assert out["phase2_first_batch"] >= 2 and out["resume_skipped_done"]
-    assert out["records_ok"] and out["total_records"] == 2 * pairs
-    assert out["n_shards"] == pairs * 2 // bs
-    idx_path, _, lut = sb.cache_paths(int(mbp * 1e6), "bacterial", tmp_path)
-    aln = Aligner(FMIndex.load(idx_path), device="cpu", lut_cache=lut)
-    work = tmp_path / "run1m_0.05"
-    recs = [r for m in zip(fastx.iter_fastq(work / "r_1.fq"),
-                           fastx.iter_fastq(work / "r_2.fq")) for r in m]
-    want = aln.sam_header() + "".join(
-        aln.align_pe(fastx.batch_reads(recs[i:i + bs]), id0=i // 2)
-        for i in range(0, len(recs), bs))
-    assert (work / "merged.sam").read_text() == want
-    assert (work / "RUN_1M.json").exists()
-
-
 @pytest.mark.parametrize("tool", [profile_phases, time_stages, time_extend,
-                                  profile_finish, profile_pe, parity,
-                                  run_1m])
+                                  profile_finish])
 def test_the_card_is_required_without_platform_cpu(tool):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the run would start")

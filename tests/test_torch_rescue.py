@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.dist.mesh import make_mesh
 from tpubwa.dist.mesh import pe_hist_psum as j_pe_hist_psum
 from tpubwa.index.builder import build_index

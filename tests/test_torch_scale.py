@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.index.builder import build_index as j_build_index
 from tpubwa.utils import genome as jgenome
 from tpubwa_torch.tools import scale_bench as sb

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa import oracle as joracle
 from tpubwa.index import fmquery as jfm
 from tpubwa.index.builder import build_index

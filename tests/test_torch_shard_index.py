@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.dist import shard_index as jsh
 from tpubwa.dist.mesh import make_mesh as jmake_mesh
 from tpubwa.index.builder import build_index

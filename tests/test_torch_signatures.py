@@ -11,6 +11,7 @@ import pkgutil
 
 import pytest
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 import tpubwa
 
 P = inspect.Parameter

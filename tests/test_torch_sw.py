@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_sw_pallas import gen
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa import oracle
 from tpubwa.extend.jax_extend import ksw_extend_batch
 from tpubwa.ops.sw_pallas import ksw_extend_pallas

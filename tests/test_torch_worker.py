@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu  # noqa: F401  (one PyTorch thread a process)
 from tpubwa.chain import device as jchain
 from tpubwa.extend import worker as jworker
 from tpubwa.index.builder import build_index

@@ -429,31 +429,31 @@ class Aligner:
 
     def align_se_stream(self, batches, id0: int = 0, depth: int = 2):
         """Pipelined SE alignment over an iterable of ReadBatches; yields
-        SAM body text per batch, in order.
+        SAM body text per batch, in order, on the calling thread.
 
-        Batch i+1's worker1 is dispatched before batch i is finished: the
-        native finish of batch i runs on a worker thread (the ctypes calls
-        release the interpreter lock) while the main thread drives the
-        device through batch i+1. Up to `depth` batches are in flight.
+        worker1 is dispatched for up to `depth` batches before the oldest
+        is finished, in the reference's order. On the card worker1 is a
+        host-driven loop of small device calls, so dispatching batch i+1
+        ahead of batch i's finish does not overlap the two: the order
+        keeps the reference's calls and output, and no second thread
+        contends with the one that drives the device. The native finish
+        still spreads its chunks over threads (``_finish_threaded``).
 
         Items may also be (ReadBatch, explicit_id0) pairs, where skipped
         batches leave gaps in the global read numbering.
         """
-        pending: list[cf.Future] = []
+        pending: list[tuple[ReadBatch, list, int]] = []
         n = id0
-        with cf.ThreadPoolExecutor(max_workers=1) as ex:
-            for item in batches:
-                b, i0 = item if isinstance(item, tuple) else (item, None)
-                if i0 is not None:
-                    n = i0
-                parts = self._dispatch_se(b)
-                pending.append(ex.submit(self._finish_se_dispatched, b,
-                                         parts, n))
-                n += b.n
-                if len(pending) >= depth:
-                    yield pending.pop(0).result()
-            for fut in pending:
-                yield fut.result()
+        for item in batches:
+            b, i0 = item if isinstance(item, tuple) else (item, None)
+            if i0 is not None:
+                n = i0
+            pending.append((b, self._dispatch_se(b), n))
+            n += b.n
+            if len(pending) >= depth:
+                yield self._finish_se_dispatched(*pending.pop(0))
+        for bb, parts, i0 in pending:
+            yield self._finish_se_dispatched(bb, parts, i0)
 
     def _finish_se_buf(self, batch: ReadBatch, buf: np.ndarray,
                        id0: int) -> str:
