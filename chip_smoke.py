@@ -197,6 +197,17 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                batches, 3 runs of each variant in turns (a b c d, a b c
                d, ...); per variant and window the seconds a batch and
                the reads/s (median [min, max]).
+ 22. PE window — only in the pe_window call: the PE stream by window on
+               the bench world's PE batches as bench_torch.py makes them
+               (2048 pairs of 150 bp, inserts 400 +- 50, seed 11), one
+               warm-up batch, then over windows of 1, 2 and 8 timed
+               batches, 3 runs each in turns, (pa) align_pe_stream and
+               (pb) worker1_packed + sync, then _finish_pe_buf, a batch
+               in turn; every SAM byte-equal to Oracle.align_pe, no
+               rescue result missing, K1 and K2 launched; per variant and
+               window the seconds a batch and the reads/s (median [min,
+               max]), worker1's and the finish's seconds for pb, and the
+               reserved memory before and after.
 Phases 7-20 run between phases 5 and 6, each from counts of its own;
 phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and 20 and
 on phase 17's time_extend kernel row, and K2 on the first forward call of
@@ -219,7 +230,8 @@ kernels line of its one entry; python3 chip_smoke.py profile the build,
 the 64 Mbp --prepare and phases 17-18, with the kernels line of their 2
 entries; python3 chip_smoke.py bench the build and phases 19 (8 timed SE
 batches), 21 (windows of 1, 2 and 8 batches, 3 runs a variant) and 20,
-with the kernels line of phase 20's entry.)
+with the kernels line of phase 20's entry; python3 chip_smoke.py
+pe_window the build and phase 22.)
 """
 import atexit
 import json
@@ -1180,12 +1192,13 @@ def cli_phases(aln, card: str) -> dict:
     from tpubwa_torch.index.builder import build_index
     from tpubwa_torch.io import fastx
     from tpubwa_torch.utils import dna
+    from tpubwa_torch.utils.files import write_atomic
     import numpy as np
     d = smoke_dir()
     idx_path = REPO / "build" / "tpubwa_torch" / \
         f"smoke_index_{GENOME_LEN}.npz"
     if not idx_path.exists():
-        aln.idx.save(idx_path)
+        write_atomic(idx_path, aln.idx.save)
     hdr = aln.sam_header()
     res = {}
 
@@ -2566,14 +2579,17 @@ def profile_entries(prof, card: str) -> list:
                      card)]
 
 
-STREAM_WINDOWS = (1, 2, 8)   # phase 21's windows of timed SE batches
+STREAM_WINDOWS = (1, 2, 8)   # phases 21-22's windows of timed batches
 STREAM_REPS = 3              # ... each variant's runs of a window, in turns
-STREAM_VARIANTS = {
+STREAM_VARIANTS = {          # phase 21 (SE): a-d; phase 22 (PE): pa, pb
     "a": "align_se_stream (one thread, the reference's order)",
     "b": "threaded stream (the finish on one worker thread)",
     "c": "align_se loop",
     "d": "stages in turn (_dispatch_se + sync, then the finish)",
+    "pa": "align_pe_stream (one thread, the reference's order)",
+    "pb": "stages in turn (worker1_packed + sync, then _finish_pe_buf)",
 }
+PE_STREAM_VARIANTS = ("pa", "pb")
 
 
 def threaded_stream(aln, batches, id0: int, depth: int = 2):
@@ -2596,11 +2612,14 @@ def threaded_stream(aln, batches, id0: int, depth: int = 2):
 
 
 def stream_variant(aln, v: str, batches, id0: int, split: list) -> list:
-    """Phase 21's variant ``v`` over the batches; returns the SAM texts.
-    Variant d appends each batch's (worker1 s, finish s) to ``split``."""
+    """Variant ``v`` of STREAM_VARIANTS over the batches (id0 counts reads
+    for SE, pairs for PE); returns the SAM texts. The stages in turn (d,
+    pb) append each batch's (worker1 s, finish s) to ``split``."""
     import torch
     if v == "a":
         return list(aln.align_se_stream(batches, id0=id0))
+    if v == "pa":
+        return list(aln.align_pe_stream(batches, id0=id0))
     if v == "b":
         return list(threaded_stream(aln, batches, id0))
     out, n = [], id0
@@ -2609,13 +2628,19 @@ def stream_variant(aln, v: str, batches, id0: int, split: list) -> list:
             out.append(aln.align_se(b, id0=n))
         else:
             t0 = time.perf_counter()
-            parts = aln._dispatch_se(b)
+            if v == "d":
+                parts = aln._dispatch_se(b)
+                finish = lambda: aln._finish_se_dispatched(b, parts, n)  # noqa
+            else:
+                buf = aln.worker1_packed(b.seqs, b.lens)
+                finish = lambda: aln._finish_pe_buf(  # noqa: E731
+                    b, buf.cpu().numpy(), n)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            out.append(aln._finish_se_dispatched(b, parts, n))
+            out.append(finish())
             torch.cuda.synchronize()
             split.append((t1 - t0, time.perf_counter() - t1))
-        n += b.n
+        n += b.n // 2 if v == "pb" else b.n
     return out
 
 
@@ -2626,34 +2651,44 @@ def spread(xs: list) -> str:
 
 
 def stream_phase(aln, batches, wants, id0: int, card: str, windows,
-                 reps: int, variants: str = "abcd") -> dict:
-    """Phase 21: the SE stream against the order it replaced and against
+                 reps: int, variants="abcd", phase: str = "21") -> dict:
+    """Phase 21 (SE) or 22 (PE): a stream against other orders and against
     its stages, on the same batches in the same call. For each window of
     w timed batches (the first w of ``batches``, whose oracle SAMs are
     ``wants``), ``reps`` rounds of the variants in turns (a b c d, a b c
     d, ...), each between two synchronizes; every variant's SAM must be
-    byte-equal to the oracle's. Prints, per variant and window, the
-    seconds a batch and the reads/s (median [min, max]) and the card's
-    reserved memory after the runs; for variant d also worker1's and
-    the finish's seconds a batch. Returns {(variant, window): [s a
-    batch, ...]}."""
+    byte-equal to the oracle's, and a PE variant's run must miss no
+    rescue result. Prints the card's reserved memory before the runs,
+    and per variant and window the seconds a batch and the reads/s
+    (median [min, max]) and the reserved memory after the runs; for the
+    stages in turn also worker1's and the finish's seconds a batch.
+    Returns {(variant, window): [s a batch, ...]}."""
     import torch
     if len(batches) < max(windows):
-        raise AssertionError(f"phase 21: {len(batches)} batches for a "
-                             f"window of {max(windows)}")
+        raise AssertionError(f"phase {phase}: {len(batches)} batches for "
+                             f"a window of {max(windows)}")
     t_phase = time.time()
+    lib = aln.oracle._lib
+    print(f"phase {phase}: reserved {torch.cuda.memory_reserved() / 2**20:.0f}"
+          f" MiB before the runs [{card}]", flush=True)
     secs, mem, splits = {}, {}, {}
     for w in windows:
         for _ in range(reps):
             for v in variants:
                 split = splits.setdefault((v, w), [])
+                what = f"phase {phase} variant {v}, window {w}"
+                lib.tb_rescue_miss_reset()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 sams = stream_variant(aln, v, batches[:w], id0, split)
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
-                check_stream(sams, wants[:w], f"phase 21 variant {v}, "
-                             f"window {w}")
+                check_stream(sams, wants[:w], what)
+                misses = lib.tb_rescue_miss_count()
+                if misses:
+                    raise AssertionError(f"{what}: {misses} rescue windows "
+                                         "were missing from the injected "
+                                         "device results")
                 secs.setdefault((v, w), []).append(dt / w)
                 mem.setdefault((v, w), []).append(
                     torch.cuda.memory_reserved())
@@ -2667,13 +2702,13 @@ def stream_phase(aln, batches, wants, id0: int, card: str, windows,
                   f"{min(mem[(v, w)]) / 2**20:.0f}-"
                   f"{max(mem[(v, w)]) / 2**20:.0f} MiB; "
                   f"{STREAM_VARIANTS[v]} [{card}]", flush=True)
-            if v == "d":
-                sp = splits[(v, w)]
-                print(f"stream d window {w}: worker1 "
+            sp = splits[(v, w)]
+            if sp:
+                print(f"stream {v} window {w}: worker1 "
                       f"{spread([a for a, _ in sp])} s, finish "
                       f"{spread([b for _, b in sp])} s a batch over "
                       f"{len(sp)} batches [{card}]", flush=True)
-    print(f"phase 21 took {time.time() - t_phase:.1f} s [{card}]",
+    print(f"phase {phase} took {time.time() - t_phase:.1f} s [{card}]",
           flush=True)
     return secs
 
@@ -2700,6 +2735,46 @@ def bench_stream_phase(card: str) -> dict:
              for k, b in enumerate(batches[1:])]
     return stream_phase(aln, batches[1:], wants, BATCH, card,
                         STREAM_WINDOWS, STREAM_REPS)
+
+
+def pe_window_phase(card: str) -> dict:
+    """Phase 22 (the pe_window call): the PE stream by window. The bench
+    world's PE batches as bench_torch.py makes them (2048 pairs of 150 bp,
+    inserts 400 +- 50, seed 11; its six batches are the first six here),
+    one warm-up batch through align_pe, then align_pe_stream (pa) and
+    worker1_packed + sync, then _finish_pe_buf, a batch in turn (pb), over
+    windows of 1, 2 and 8 timed batches, 3 runs each in turns; every SAM
+    byte-equal to Oracle.align_pe (computed once a batch), no rescue
+    result missing, K1 and K2 launched in the timed runs."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.ops import sw, sw_local
+    aln = make_aligner()
+    fwd = aln.idx.get_seq(0, aln.idx.l_pac).astype(np.uint8)
+    n_pairs = PE_PAIRS * (max(STREAM_WINDOWS) + 1)
+    recs = fastx.simulate_reads(fwd, n_pairs, read_len=PE_READ_LEN,
+                                error_rate=0.01, indel_rate=0.001, seed=11,
+                                paired=True, insert_mean=400, insert_std=50)
+    batches = [fastx.batch_reads(recs[i:i + 2 * PE_PAIRS],
+                                 max_len=PE_READ_LEN)
+               for i in range(0, 2 * n_pairs, 2 * PE_PAIRS)]
+    t0 = time.time()
+    wants = [aln.oracle.align_pe(b, aln.opt, id0=PE_PAIRS * k)[0]
+             for k, b in enumerate(batches)]
+    print(f"phase 22: Oracle.align_pe of {len(batches)} batches in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    check_stream([aln.align_pe(batches[0], id0=0)], wants[:1],
+                 "phase 22 warm-up")
+    sw.ksw_extend.launches = sw_local.ksw_local.launches = 0
+    secs = stream_phase(aln, batches[1:], wants[1:], PE_PAIRS, card,
+                        STREAM_WINDOWS, STREAM_REPS, PE_STREAM_VARIANTS,
+                        "22")
+    k1, k2 = sw.ksw_extend.launches, sw_local.ksw_local.launches
+    print(f"phase 22: K1 launches {k1}, K2 launches {k2} over the timed "
+          f"runs [{card}]", flush=True)
+    if k1 <= 0 or k2 <= 0:
+        raise AssertionError(f"phase 22 launched K1 {k1} and K2 {k2} times")
+    return secs
 
 
 def k1_entry(name: str, path: str, args, n_l: int, card: str) -> tuple:
@@ -2820,8 +2895,10 @@ def main() -> int:
     from tpubwa_torch.tools.scale_bench import card_line
     card = card_line()
     print(f"card: {card}", flush=True)
-    # the full call builds the bench world's caches beside phases 1-2
-    bprep = None if sys.argv[1:] else start_bench_prepare()
+    # the full call and pe_window build the bench world's caches beside
+    # phases 1-2
+    bprep = start_bench_prepare() if sys.argv[1:] in ([], ["pe_window"]) \
+        else None
     atexit.register(stop, bprep)
     timed_phase("1 (build)", build)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2884,6 +2961,14 @@ def main() -> int:
         print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phases 19-21 only"}))
+        return 0
+    if sys.argv[1:] == ["pe_window"]:
+        wait_prepare(bprep, "bench world prepare", card)
+        timed_phase("22 (PE window)", pe_window_phase, card)
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phase 22 only"}))
         return 0
     if sys.argv[1:] == ["scale"]:
         prep = start_scale_prepare()

@@ -17,11 +17,12 @@ import os
 import re
 import shutil
 import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import torch
+
+from ..utils.files import write_atomic
 
 _REPO = Path(__file__).resolve().parents[2]
 CSRC = _REPO / "tpubwa_torch" / "csrc"
@@ -72,10 +73,7 @@ class KernelLib:
     def build(self) -> Path:
         """Compile the source for sm_90a (a temporary file renamed into
         place). Returns the library path."""
-        self.so.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.so.parent)
-        os.close(fd)
-        try:
+        def compile_to(tmp):
             cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                    "-Xptxas", "-v", "-I", str(CSRC),
@@ -86,11 +84,7 @@ class KernelLib:
                 raise RuntimeError(
                     f"nvcc failed for {self.src.name}:\n{r.stderr}")
             self.ptxas_log = r.stderr
-            os.replace(tmp, self.so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        return self.so
+        return write_atomic(self.so, compile_to)
 
     def stale(self) -> bool:
         """True when the library is missing or older than the source or a

@@ -9,9 +9,7 @@ sees a half-written file, even while another process builds it.
 from __future__ import annotations
 
 import ctypes as C
-import os
 import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
@@ -19,6 +17,7 @@ import numpy as np
 
 from ..index.builder import FMIndex
 from ..opts import MemOptions
+from ..utils.files import write_atomic
 
 _REPO = Path(__file__).resolve().parents[2]
 _SO = _REPO / "build" / "tpubwa_torch" / "liboracle.so"
@@ -29,17 +28,11 @@ _lib_lock = threading.Lock()
 
 
 def _build() -> None:
-    _SO.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_SO.parent)
-    os.close(fd)
-    try:
+    def link(tmp):
         cmd = ["g++", "-O2", "-g", "-std=c++17", "-shared", "-fPIC",
                *[str(s) for s in sorted(_NATIVE.glob("*.cpp"))], "-o", tmp]
         subprocess.run(cmd, check=True, capture_output=True, text=True)
-        os.replace(tmp, _SO)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    write_atomic(_SO, link)
 
 
 def get_lib() -> C.CDLL:

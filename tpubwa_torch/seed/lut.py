@@ -43,6 +43,7 @@ import torch
 from ..index.builder import FMIndex
 from ..index.device import DeviceIndex, backward_ext, sa_lookup
 from ..ops.window import shift_left, text_window_asc, text_window_desc
+from ..utils.files import write_atomic
 from .device import _emit_mask
 
 BIG = 2**30
@@ -185,7 +186,10 @@ class KmerLUT:
             K, S, P = build_kmer_lut_arrays(idx, k0)
             ksp = np.stack([np.where(S == 1, P, K), S], axis=1)
             if cache is not None:
-                np.savez(str(cache), k0=k0, ksp=ksp, fp=fp)
+                # written whole or not at all: --multihost processes share
+                # the cache, and the reference loads it by the same name
+                write_atomic(cache, lambda tmp: np.savez(
+                    tmp, k0=k0, ksp=ksp, fp=fp), suffix=".npz")
         return KmerLUT(k0, torch.as_tensor(ksp).to(device))
 
     def to(self, device) -> "KmerLUT":

@@ -4,7 +4,9 @@ port's tools and ``chip_smoke.py``.
 
 The genome is ``utils.genome.synthetic_genome(4_600_000, seed=2024)`` with
 the BACTERIAL repeat profile; its index and LUT are cached as
-``build/tpubwa_torch/smoke_{index,lut}_4600000.npz``. Reads: 100 bp, 1%
+``build/tpubwa_torch/smoke_{index,lut}_4600000.npz``, each written to a
+temporary file and renamed into place (a process killed mid-write leaves
+no truncated cache behind). Reads: 100 bp, 1%
 substitutions, 0.1% indels, seed 7.
 """
 from __future__ import annotations
@@ -28,14 +30,14 @@ def get_index(build_dir: Path = BUILD, genome_len: int = GENOME_LEN):
     """The bench genome's FM-index, from its cache or built and cached."""
     from ..index.builder import FMIndex, build_index
     from ..utils import dna, genome
+    from ..utils.files import write_atomic
     cache = Path(build_dir) / f"smoke_index_{genome_len}.npz"
     if cache.exists():
         return FMIndex.load(cache)
     g = genome.synthetic_genome(genome_len, seed=GENOME_SEED,
                                 profile=genome.BACTERIAL)
     idx = build_index([("U00096_synth", dna.decode(g))])
-    cache.parent.mkdir(parents=True, exist_ok=True)
-    idx.save(cache)
+    write_atomic(cache, idx.save)
     return idx
 
 

@@ -43,6 +43,7 @@ import torch
 
 from ..dist.mesh import (Mesh, insert_size_psum, make_mesh, pe_hist_psum,
                          worker1_sharded, worker1_step)
+from ..utils.files import write_atomic
 from .scale_bench import card_line, require_card
 
 REPO = Path(__file__).resolve().parents[2]
@@ -99,10 +100,7 @@ def medium_index(genome_len: int = MEDIUM_LEN, seed: int = MEDIUM_SEED,
     else:
         idx = build_index([("dryrun_synth",
                             dna.decode(medium_genome(genome_len, seed)))])
-        build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = cache.with_suffix(".tmp.npz")
-        idx.save(tmp)
-        tmp.replace(cache)
+        write_atomic(cache, idx.save)
     return idx, build_dir / f"dryrun_lut_{genome_len}.npz"
 
 

@@ -36,6 +36,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.files import write_atomic
+
 REPO = Path(__file__).resolve().parents[2]
 BUILD = REPO / "build" / "tpubwa_torch"
 GENOME_SEED = 7
@@ -80,12 +82,9 @@ def get_genome(mbp: float, costs: dict, profile: str | None = None,
     _, path, _ = cache_paths(glen, profile, build_dir)
     t0 = time.time()
     if not path.exists():
-        path.parent.mkdir(parents=True, exist_ok=True)
         g = genome.synthetic_genome(glen, seed=GENOME_SEED, profile={
             "human": genome.HUMAN, "bacterial": genome.BACTERIAL}[profile])
-        tmp = path.with_suffix(".tmp.npy")
-        np.save(tmp, g)
-        tmp.replace(path)
+        write_atomic(path, lambda tmp: np.save(tmp, g))
         costs["genome_build_s"] = round(time.time() - t0, 1)
     else:
         costs["genome_load_s"] = round(time.time() - t0, 1)
@@ -108,10 +107,7 @@ def get_index(mbp: float, g: np.ndarray, costs: dict,
     costs["index_build_s"] = round(time.time() - t0, 1)
     costs["index_build_rss_gb"] = round(rss_gb(), 1)
     t0 = time.time()
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(".tmp.npz")
-    idx.save(tmp)
-    tmp.replace(path)
+    write_atomic(path, idx.save)
     costs["index_save_s"] = round(time.time() - t0, 1)
     return idx
 
