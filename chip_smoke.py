@@ -103,7 +103,9 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
  14. int64   — a second aligner with the index and LUT widened to int64
                aligns phase 3's and phase 5's first timed batch: SAM
                byte-equal to the int32 aligner's and the oracle's, K1 and
-               K2 launched, no rescue result missing;
+               K2 launched, no rescue result missing (in the full call the
+               int32 aligner's SAM of those batches is phases 3 and 5's,
+               held there to the same oracle text, and is not made again);
  15. scale   — tools/scale_bench at 64 Mbp (chr20 size, BASELINE config 3):
                the genome, index and LUT built (cold) by a --prepare process
                started before phase 7 (phases 7-14 run beside it, and each
@@ -122,8 +124,10 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                classify_overflow.py) on the card: at 4.6 Mbp diag_caps on
                the bench batch of 4096 at the default caps and
                tune_budgets' seeding-budget variants (two in the full
-               call: the base and fm_dense=8; the seven of its default
-               sweep in the diag call); at 64 Mbp, on
+               call, best of one run: the base and fm_dense=8; the seven
+               of its default sweep, best of 3, in the diag call); at
+               64 Mbp (diag_tier2 without its steady run in the full
+               call), on
                phase 15's aligner, diag_scale and diag_tier2 on 4096
                reads, classify_overflow on the first 2048 (SMEMs and
                seeds) and on every 16th read (also chains and regions),
@@ -174,7 +178,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                with a region on every read, dryrun_multichip(8) over 8
                logical shards of cuda:0 (8 cards where there are) with the
                index widened to int64 and the LOAD test (8 x 1024 reads,
-               2 Mbp), the reference's asserts; its sharded outputs equal
+               2 Mbp; 8 x 512 in the full call), the reference's asserts; its sharded outputs equal
                worker1_step on the blocks and, on every read that
                overflows in neither, on the whole batch (the LOAD test's
                too, against its one-device run); it writes
@@ -190,8 +194,9 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                align_se, (d) the stages in turn (_dispatch_se and a
                synchronize, then _finish_se_dispatched, timed apart);
                every variant's SAM byte-equal to the oracle's. In the
-               full call, between phases 3 and 4, one pass of (a), (b)
-               and (d) over phase 3's 2 timed batches; in the bench call,
+               full call, between phases 3 and 4, one pass of (b) and (d)
+               over phase 3's 2 timed batches, beside (a) as phase 3 timed
+               it on those batches; in the bench call,
                after phase 19, the bench world's batches (4096 x 100 bp,
                seed 7) after one warm-up, windows of 1, 2 and 8 timed
                batches, 3 runs of each variant in turns (a b c d, a b c
@@ -208,11 +213,36 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                window the seconds a batch and the reads/s (median [min,
                max]), worker1's and the finish's seconds for pb, and the
                reserved memory before and after.
-Phases 7-20 run between phases 5 and 6, each from counts of its own;
-phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and 20 and
-on phase 17's time_extend kernel row, and K2 on the first forward call of
-phase 15 and of phase 17's profile_pe, to their plain versions (8 more
-entries).
+ 23. options — the alignment options path at the named flag sets of
+               tpubwa_torch/tools/option_sets.py (scaled2, pacbio, ont2d,
+               intractg, knobs), each parsed by the command line's
+               opts_from_args: (a) K1 and K2 bit-equal to their plain
+               versions at each set's scores (its band width, z-drop and
+               rescue minimum score min_seed_len * a) over the production
+               shapes and the edge sweep, whose packed-key rows sit at
+               2**22 - a * qlen for the set's match score a, in the
+               instance the wrapper picks and the generic one; (b)
+               Aligner(opt, device="cuda") on the bench world: one SE batch
+               (bench reads, seed 7) and one PE batch (phase 5's pairs,
+               seed 11) at each set, kernel counts set to 0 just before
+               each and read just after, every SAM byte-equal to
+               Oracle.align_se / align_pe under the same options, no rescue
+               result missing, K1 launched on both paths and K2 on the PE
+               path; a line a set and path with reads, seconds, fallback
+               share, tier-1 overflow, tier-2/3 rows, rescue tasks and
+               launches; (c) `python -m tpubwa_torch align idx r_1.fq
+               r_2.fq --platform cuda -A2 -B8 -O12 -E2` on 512 pairs, the
+               file byte-equal to the header + Oracle.align_pe at those
+               options. In the full call, after phase 5 (before the 64 Mbp
+               build process starts): (a) at all five sets, (b) at scaled2
+               and pacbio on 1024 reads and 512 pairs; in the options call
+               (b) at all five sets on 4096 reads and 2048 pairs.
+Phases 7-20 and 23 run between phases 5 and 6, each from counts of its
+own; phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and
+20 and on phase 17's time_extend kernel row, K2 on the first forward call
+of phase 15 and of phase 17's profile_pe, and K1 on the first call and K2
+on the first forward call of phase 23 (b) at scaled2 and at pacbio (at the
+set's scores), to their plain versions (12 more entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
 Every phase prints its seconds, and the call its whole seconds. In the
@@ -231,7 +261,9 @@ the 64 Mbp --prepare and phases 17-18, with the kernels line of their 2
 entries; python3 chip_smoke.py bench the build and phases 19 (8 timed SE
 batches), 21 (windows of 1, 2 and 8 batches, 3 runs a variant) and 20,
 with the kernels line of phase 20's entry; python3 chip_smoke.py
-pe_window the build and phase 22.)
+pe_window the build and phase 22; python3 chip_smoke.py options the build
+and phase 23 at all five sets at full batch, with the kernels line of its
+ten entries, K1 and K2 at each set.)
 """
 import atexit
 import json
@@ -393,18 +425,21 @@ def max_abs_diff(got, want) -> int:
         if got.numel() else 0
 
 
-def k1_measure(args, zdrop=100, kernel_reps=20, generic=False):
-    """Run K1 and ksw_extend_ref on the same card tensors; returns a dict
-    with the max abs difference, both times and the bound. The plain
-    version is timed in the run that gives the values to compare (one run
-    of a few hundred ms: repeats cost the call more than they tell). With
-    ``generic`` the generic (shared-memory) instance is also held to the
-    plain version and timed on the same inputs, in turns with the
-    instance the wrapper picks (generic, picked, picked, generic)."""
+def k1_measure(args, zdrop=100, kernel_reps=20, generic=False,
+               scoring=None):
+    """Run K1 and ksw_extend_ref on the same card tensors, at ``scoring``
+    (ksw_extend's score keywords; bwa's defaults, SCORING, when None);
+    returns a dict with the max abs difference, both times and the bound.
+    The plain version is timed in the run that gives the values to
+    compare (one run of a few hundred ms: repeats cost the call more than
+    they tell). With ``generic`` the generic (shared-memory) instance is
+    also held to the plain version and timed on the same inputs, in turns
+    with the instance the wrapper picks (generic, picked, picked,
+    generic)."""
     import torch
     from tpubwa_torch.ops.sw import ksw_extend, ksw_extend_ref, launch_kernel
     q, ql, t, tl, h0, w, eb, valid = args
-    kw = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=zdrop, a=1, b=4)
+    kw = dict(scoring or SCORING, zdrop=zdrop)
     got = ksw_extend(*args, **kw)
     stats, ref = {}, []
     plain_ms = time_ms(lambda: ref.append(
@@ -438,14 +473,15 @@ def k1_measure(args, zdrop=100, kernel_reps=20, generic=False):
 EDGE_Q = (31, 32, 33, 127, 128, 129, 159, 160, 161, 255, 256, 257, 288, 300)
 
 
-def edge_tasks(n, Q, T, seed):
+def edge_tasks(n, Q, T, seed, a=1):
     """Tasks for the kernels' edge sweeps as numpy arrays (qs, qlen, ts,
     tlen, h0, w, valid): the gen_tasks mix, with every query at full width
     when the seed is odd, and in rows 3.. a query of one base, a target of
     one base, h0 just inside, just outside and far outside what K1's packed
-    key holds (max(h0, 0) + a * qlen < 2**22; these three queries match
-    their targets exactly, so that H reaches that sum), h0 = 0, and bands
-    of half-width 0, 1, 3 and 100 in turn so that some go empty."""
+    key holds at match score ``a`` (max(h0, 0) + a * qlen < 2**22; these
+    three queries match their targets exactly, so that H reaches that
+    sum), h0 = 0, and bands of half-width 0, 1, 3 and 100 in turn so that
+    some go empty."""
     import numpy as np
     qs, qlen, ts, tlen, h0, valid = gen_tasks(seed, n, Q, T,
                                               full=bool(seed & 1))
@@ -454,8 +490,8 @@ def edge_tasks(n, Q, T, seed):
         valid[0], w[0] = 1, 100
     if n >= 12:
         qlen[3], tlen[4] = 1, 1
-        h0[5] = (1 << 22) - qlen[5] - 1
-        h0[6] = (1 << 22) - qlen[6]
+        h0[5] = (1 << 22) - a * qlen[5] - 1
+        h0[6] = (1 << 22) - a * qlen[6]
         h0[7] = 1 << 24
         h0[8] = 0
         w[5:9] = 100
@@ -467,64 +503,86 @@ def edge_tasks(n, Q, T, seed):
     return qs, qlen, ts, tlen, h0, w, valid
 
 
-def parity(card: str):
-    """K1 bit-equal to ksw_extend_ref on the card over the sweep shapes."""
+def set_options(name: str):
+    """(MemOptions, the kernels' score keywords) of option set ``name``
+    (tpubwa_torch/tools/option_sets.py), or bwa's defaults for None."""
+    from tpubwa_torch.opts import MemOptions
+    from tpubwa_torch.tools import option_sets
+    opt = option_sets.options(name) if name else MemOptions()
+    return opt, option_sets.scores(opt)
+
+
+def parity(card: str, name: str = None, short: bool = False):
+    """K1 bit-equal to ksw_extend_ref on the card over the sweep shapes.
+    With ``name``, at option set name's scores, band width and z-drop (and
+    its match score in the edge sweep's packed-key rows), over the
+    production shapes and the edge sweep only; ``short`` keeps the edge
+    sweep's rows at the main path's widths (Q = 100 and 151, and 33 at
+    N = 1) and leaves out the rest."""
     import torch
     from tpubwa_torch.ops import sw
     dev = torch.device("cuda")
-    shapes = [(100, Q, T, 100, 100) for Q in (100, 151, 256)
-              for T in (256, 512, 768, 1024)]
-    shapes += [(4500, 100, 290, 100, 100), (2100, 151, 640, 100, 100),
-               (600, 100, 290, 3, 10)]
+    opt, scoring = set_options(name)
+    tag = f"parity[{name}]" if name else "parity"
+    shapes = [] if name else [(100, Q, T, 100, 100) for Q in (100, 151, 256)
+                              for T in (256, 512, 768, 1024)]
+    if not short:
+        shapes += [(4500, 100, 290, opt.w, opt.zdrop),
+                   (2100, 151, 640, opt.w, opt.zdrop), (600, 100, 290, 3, 10)]
     worst = 0
     for n, Q, T, w, zdrop in shapes:
         qs, qlen, ts, tlen, h0, valid = gen_tasks(Q * 7 + T + n, n, Q, T)
         c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
         args = (c(qs), c(qlen), c(ts), c(tlen), c(h0),
                 c([w] * n), c([5] * n), c(valid))
-        r = k1_measure(args, zdrop=zdrop, kernel_reps=5)
+        r = k1_measure(args, zdrop=zdrop, kernel_reps=5, scoring=scoring)
         worst = max(worst, r["max_abs_err"])
-        print(f"parity N={n:5d} Q={Q:3d} T={T:4d} w={w:3d} zdrop={zdrop:3d}:"
+        print(f"{tag} N={n:5d} Q={Q:3d} T={T:4d} w={w:3d} zdrop={zdrop:3d}:"
               f" max_abs_err={r['max_abs_err']} (tolerance 0)"
               f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
               f" bound {r['bound_ms']:.6f} ms"
               f" ({r['bound_by']}) [{card}]", flush=True)
         if r["max_abs_err"] != 0:
             raise AssertionError(f"K1 differs from ksw_extend_ref at "
-                                 f"N={n} Q={Q} T={T}")
+                                 f"N={n} Q={Q} T={T} ({tag})")
     # the edge sweep, in the instance the wrapper picks and in the generic
-    edge = [(128, Q, 200 + Q, 100) for Q in EDGE_Q]
-    edge += [(1, 100, 290, 100), (1, 33, 80, 100), (128, 100, 290, 10),
-             (128, 151, 440, 100)]
+    zd = opt.zdrop
+    edge = [(128, Q, 200 + Q, zd) for Q in EDGE_Q]
+    edge += [(1, 100, 290, zd), (1, 33, 80, zd), (128, 100, 290, 10),
+             (128, 151, 440, zd)]
     for k, (n, Q, T, zdrop) in enumerate(edge):
-        qs, qlen, ts, tlen, h0, w, valid = edge_tasks(n, Q, T, 1000 + k)
+        if short and k < len(EDGE_Q):
+            continue
+        qs, qlen, ts, tlen, h0, w, valid = edge_tasks(n, Q, T, 1000 + k,
+                                                      opt.a)
         c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
         args = (c(qs), c(qlen), c(ts), c(tlen), c(h0), c(w), c([5] * n),
                 c(valid))
         r = k1_measure(args, zdrop=zdrop, kernel_reps=5,
-                       generic=True)
+                       generic=True, scoring=scoring)
         worst = max(worst, r["max_abs_err"])
-        print(f"parity edge N={n:3d} Q={Q:3d} T={T:3d} zdrop={zdrop:3d} "
+        print(f"{tag} edge N={n:3d} Q={Q:3d} T={T:3d} zdrop={zdrop:3d} "
               f"instance {sw.kernel_instance(Q)} and generic: max_abs_err="
               f"{r['max_abs_err']} (tolerance 0) kernel {r['ms']:.4f} ms, "
               f"generic {r['generic_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms [{card}]", flush=True)
         if r["max_abs_err"] != 0:
             raise AssertionError(f"K1 differs from ksw_extend_ref on the "
-                                 f"edge sweep at N={n} Q={Q} T={T}")
+                                 f"edge sweep at N={n} Q={Q} T={T} ({tag})")
     return worst
 
 
-def k2_measure(args, want_sub: bool, kernel_reps=20, generic=False):
+def k2_measure(args, want_sub: bool, kernel_reps=20, generic=False,
+               scoring=None):
     """Run K2 and ksw_local_ref on the same card tensors; returns a dict
     with the max abs difference, both times and the bound. The DP cells
     are what these inputs need: qlen x tlen summed over the valid tasks.
-    The plain version and ``generic`` as in k1_measure."""
+    The plain version, ``generic`` and ``scoring`` as in k1_measure."""
     import torch
     from tpubwa_torch.ops.sw_local import (ksw_local, ksw_local_ref,
                                            launch_kernel)
     q, ql, t, tl, minsc, valid = args
-    kw = dict(SCORING, want_sub=want_sub)
+    kw = dict(scoring or SCORING, want_sub=want_sub)
     got = ksw_local(*args, **kw)
     ref = []
     plain_ms = time_ms(lambda: ref.append(ksw_local_ref(*args, **kw)), 0)
@@ -552,58 +610,68 @@ def k2_measure(args, want_sub: bool, kernel_reps=20, generic=False):
                 cells=cells, bytes=nbytes, **extra)
 
 
-def local_tasks(n, Q, T, dev):
+def local_tasks(n, Q, T, dev, minsc=19):
     """K2 tasks on the card: the gen_tasks mix plus invalid rows (every
-    11th), a row with qlen 0 and a row with tlen 0."""
+    11th), a row with qlen 0 and a row with tlen 0; the rescue's minimum
+    score minsc (min_seed_len * a) on every row."""
     import torch
     qs, qlen, ts, tlen, _, valid = gen_tasks(Q * 5 + T + n, n, Q, T)
     qlen[1], tlen[2] = 0, 0
     c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa: E731
-    return (c(qs), c(qlen), c(ts), c(tlen), c([19] * n), c(valid))
+    return (c(qs), c(qlen), c(ts), c(tlen), c([minsc] * n), c(valid))
 
 
-def parity_k2(card: str):
+def parity_k2(card: str, name: str = None, short: bool = False):
     """K2 bit-equal to ksw_local_ref on the card over the sweep shapes, in
-    both want_sub modes; then ksw_align_batch against the scalar oracle."""
+    both want_sub modes; then ksw_align_batch against the scalar oracle.
+    With ``name``, at option set name's scores and rescue minimum score,
+    over the production shapes and the edge sweep only; ``short`` as in
+    parity (the main path's width here is Q = 150)."""
     import numpy as np
     import torch
     from tpubwa_torch import oracle
     from tpubwa_torch.ops import sw_local
-    from tpubwa_torch.opts import MemOptions
     from tpubwa_torch.pair.rescue import ksw_align_batch
     dev = torch.device("cuda")
-    shapes = [(100, Q, T) for Q in (100, 151, 256)
-              for T in (256, 512, 768, 1024)]
-    shapes += [(4500, 100, 290), (2100, 151, 640)]
+    opt, scoring = set_options(name)
+    minsc = opt.min_seed_len * opt.a
+    tag = f"parity[{name}] K2" if name else "parity K2"
+    shapes = [] if name else [(100, Q, T) for Q in (100, 151, 256)
+                              for T in (256, 512, 768, 1024)]
+    if not short:
+        shapes += [(4500, 100, 290), (2100, 151, 640)]
     worst = 0
     for n, Q, T in shapes:
-        args = local_tasks(n, Q, T, dev)
+        args = local_tasks(n, Q, T, dev, minsc)
         for want_sub in (True, False):
-            r = k2_measure(args, want_sub, kernel_reps=5)
+            r = k2_measure(args, want_sub, kernel_reps=5, scoring=scoring)
             worst = max(worst, r["max_abs_err"])
-            print(f"parity K2 N={n:5d} Q={Q:3d} T={T:4d} "
+            print(f"{tag} N={n:5d} Q={Q:3d} T={T:4d} "
                   f"want_sub={int(want_sub)}: max_abs_err={r['max_abs_err']}"
                   f" (tolerance 0) kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms"
                   f" ({r['bound_by']}) [{card}]", flush=True)
             if r["max_abs_err"] != 0:
                 raise AssertionError(f"K2 differs from ksw_local_ref at "
-                                     f"N={n} Q={Q} T={T} want_sub={want_sub}")
+                                     f"N={n} Q={Q} T={T} want_sub={want_sub}"
+                                     f" ({tag})")
     # the edge sweep (K1's tasks without h0 and w; row 1 gets qlen 0), in
     # the instance the wrapper picks and in the generic one
     edge = [(128, Q, 200 + Q) for Q in EDGE_Q]
     edge += [(1, 150, 768), (1, 33, 80), (128, 150, 768)]
     for k, (n, Q, T) in enumerate(edge):
+        if short and k < len(EDGE_Q):
+            continue
         qs, qlen, ts, tlen, _, _, valid = edge_tasks(n, Q, T, 2000 + k)
         if n > 1:
             qlen[1] = 0
         c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)  # noqa
-        args = (c(qs), c(qlen), c(ts), c(tlen), c([19] * n), c(valid))
+        args = (c(qs), c(qlen), c(ts), c(tlen), c([minsc] * n), c(valid))
         for want_sub in (True, False):
             r = k2_measure(args, want_sub, kernel_reps=5,
-                           generic=True)
+                           generic=True, scoring=scoring)
             worst = max(worst, r["max_abs_err"])
-            print(f"parity K2 edge N={n:3d} Q={Q:3d} T={T:3d} want_sub="
+            print(f"{tag} edge N={n:3d} Q={Q:3d} T={T:3d} want_sub="
                   f"{int(want_sub)} instance {sw_local.kernel_instance(Q)} "
                   f"and generic: max_abs_err={r['max_abs_err']} (tolerance "
                   f"0) kernel {r['ms']:.4f} ms, generic "
@@ -612,21 +680,23 @@ def parity_k2(card: str):
             if r["max_abs_err"] != 0:
                 raise AssertionError(f"K2 differs from ksw_local_ref on the "
                                      f"edge sweep at N={n} Q={Q} T={T} "
-                                     f"want_sub={want_sub}")
+                                     f"want_sub={want_sub} ({tag})")
     # the composed function (forward pass, reversed prefixes, reverse pass)
     # against the scalar ksw_align, an independent implementation
-    q, ql, t, tl, minsc, _ = local_tasks(100, 151, 512, dev)
-    got = ksw_align_batch(q, ql, t, tl, minsc, torch.ones_like(ql),
-                          **ALIGN_SCORING).cpu().numpy()
+    q, ql, t, tl, msc, _ = local_tasks(100, 151, 512, dev, minsc)
+    ab = dict(scoring)
+    ab["a_sc"], ab["b_sc"] = ab.pop("a"), ab.pop("b")
+    got = ksw_align_batch(q, ql, t, tl, msc, torch.ones_like(ql),
+                          **ab).cpu().numpy()
     qh, qlh, th, tlh = (x.cpu().numpy() for x in (q, ql, t, tl))
     keys = ("score", "tb", "te", "qb", "qe", "score2", "te2")
     want = np.array([[oracle.ksw_align_local(
-        qh[i, :qlh[i]], th[i, :tlh[i]], MemOptions(), 19)[k] for k in keys]
+        qh[i, :qlh[i]], th[i, :tlh[i]], opt, minsc)[k] for k in keys]
         for i in range(len(qlh))])
     bad = int((got != want).any(axis=1).sum())
-    print(f"parity ksw_align_batch N=100 Q=151 T=512 on the card against "
-          f"the scalar oracle: {bad} rows differ (tolerance 0) [{card}]",
-          flush=True)
+    print(f"{tag.replace(' K2', '')} ksw_align_batch N=100 Q=151 T=512 on "
+          f"the card against the scalar oracle: {bad} rows differ "
+          f"(tolerance 0) [{card}]", flush=True)
     if bad:
         raise AssertionError("ksw_align_batch differs from the scalar "
                              "ksw_align")
@@ -1186,8 +1256,11 @@ def pe_reads(idx):
                                                     2 * PE_PAIRS)]
 
 
-def cli_phases(aln, card: str) -> dict:
-    """Phases 7-9: the command line on the card. Returns its numbers."""
+def cli_phases(aln, card: str, single_file: bool = True) -> dict:
+    """Phases 7-9: the command line on the card. Returns its numbers.
+    Without ``single_file`` (the full call) phase 7's SE run is phase 9's
+    --shard-dir run, its file the merge of its shards: the two ran the
+    same reads through the same command."""
     from tpubwa_torch import cli
     from tpubwa_torch.index.builder import build_index
     from tpubwa_torch.io import fastx
@@ -1211,17 +1284,30 @@ def cli_phases(aln, card: str) -> dict:
         fastx.batch_reads(recs[i:i + BATCH], max_len=READ_LEN), aln.opt,
         id0=i) for i in range(0, len(recs), BATCH))
     prep = time.time() - t0
+    sd = d / "shards"
+    if sd.exists():
+        for f in sd.iterdir():
+            f.unlink()
+    cmd = ["align", str(idx_path), str(d / "r.fq"), "--platform", DEVICE,
+           "--batch-size", str(BATCH), "--shard-dir", str(sd)]
     t0 = time.time()
-    err = run_cli(["align", str(idx_path), str(d / "r.fq"), "-o",
-                   str(d / "out.sam"), "--platform", DEVICE,
-                   "--batch-size", str(BATCH)], "CLI SE")
+    if single_file:
+        err = run_cli(["align", str(idx_path), str(d / "r.fq"), "-o",
+                       str(d / "out.sam"), "--platform", DEVICE,
+                       "--batch-size", str(BATCH)], "CLI SE")
+    else:
+        err = err1 = run_cli(cmd, "CLI SE shard run")
+        cli.main(["merge", str(sd / "header.sam"),
+                  *map(str, sorted(sd.glob("shard_*.sam"))), "-o",
+                  str(d / "out.sam")])
     wall = time.time() - t0
     first_diff((d / "out.sam").read_text(), want, "CLI SE SAM against the "
                "header + the oracle")
     k1, k2 = cli_launches(err)
     res["se"] = dict(line=cli_line(err, "total"), wall=wall, k1=k1, k2=k2)
-    print(f"CLI SE: {len(recs)} reads, whole file byte-equal to the header "
-          f"+ the oracle; the CLI says: {res['se']['line']}; process wall "
+    how = "" if single_file else " (phase 9's --shard-dir run, merged)"
+    print(f"CLI SE{how}: {len(recs)} reads, whole file byte-equal to the "
+          f"header + the oracle; the CLI says: {res['se']['line']}; process wall "
           f"{wall:.1f} s (start-up included; reads + oracle prepared in "
           f"{prep:.1f} s); K1 launches {k1}, K2 launches {k2} [{card}]",
           flush=True)
@@ -1259,13 +1345,8 @@ def cli_phases(aln, card: str) -> dict:
                              f"{k2} times: expected K2 twice a batch")
 
     # ---- 9. --shard-dir resume, merge, sort, index
-    sd = d / "shards"
-    if sd.exists():
-        for f in sd.iterdir():
-            f.unlink()
-    cmd = ["align", str(idx_path), str(d / "r.fq"), "--platform", DEVICE,
-           "--batch-size", str(BATCH), "--shard-dir", str(sd)]
-    err1 = run_cli(cmd, "CLI shard run")
+    if single_file:
+        err1 = run_cli(cmd, "CLI shard run")
     err2 = run_cli(cmd, "CLI shard rerun")
     shards = sorted(sd.glob("shard_*.sam"))
     n_batches = sum(1 for l in err1.splitlines() if "] batch " in l)
@@ -1853,12 +1934,15 @@ def long_phase(aln, card: str) -> dict:
     return dict(first=k1_first[0], k1=k1, bucket3=bucket3)
 
 
-def int64_phase(aln, card: str) -> dict:
+def int64_phase(aln, card: str, int32: bool = True) -> dict:
     """Phase 14: int64 positions on the card. A second aligner of the
     4.6 Mbp index, widened to int64, aligns phase 3's first timed batch
     (4096 x 100 bp) and phase 5's (2048 pairs): each SAM byte-equal to the
     int32 aligner's on the same batch and to the oracle's; K1 and K2
-    launched; no rescue result missing."""
+    launched; no rescue result missing. Without ``int32`` (the full call)
+    the int32 aligner does not align the two batches again: phases 3 and
+    5 held its SAM of them to the same oracle text, so the int64 SAM's
+    equality with the oracle is its equality with the int32 SAM."""
     import torch
     from tpubwa_torch.io import fastx
     from tpubwa_torch.ops import sw_local
@@ -1867,12 +1951,12 @@ def int64_phase(aln, card: str) -> dict:
     se = fastx.batch_reads(se_reads(aln.idx)[1], max_len=READ_LEN)
     pe = fastx.batch_reads(pe_reads(aln.idx)[1], max_len=PE_READ_LEN)
     t32 = {}
-    for name, fn in (("SE", lambda: aln.align_se(se, id0=BATCH)),
-                     ("PE", lambda: aln.align_pe(pe, id0=PE_PAIRS))):
+    runs32 = (("SE", lambda: aln.align_se(se, id0=BATCH)),
+              ("PE", lambda: aln.align_pe(pe, id0=PE_PAIRS)))
+    for name, fn in runs32 if int32 else ():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         t32[name] = (fn(), time.perf_counter() - t0)
-    sam32, pe32 = t32["SE"][0], t32["PE"][0]
     aln64 = make_aligner()
     aln64.didx, aln64.lut = widen(aln64.didx, aln64.lut)
     if aln64.didx.pos_dtype != torch.int64:
@@ -1892,18 +1976,21 @@ def int64_phase(aln, card: str) -> dict:
     _, k1 = count_k1(run, k1_log, k1_first)
     k2 = sw_local.ksw_local.launches
     misses = lib.tb_rescue_miss_count()
-    first_diff(t["SE"][0], sam32, "int64 SE SAM against the int32 aligner's")
+    for name in t32:
+        first_diff(t[name][0], t32[name][0], f"int64 {name} SAM against "
+                   "the int32 aligner's")
     first_diff(t["SE"][0], aln.oracle.align_se(se, aln.opt, id0=BATCH),
                "int64 SE SAM against the oracle")
-    first_diff(t["PE"][0], pe32, "int64 PE SAM against the int32 aligner's")
     first_diff(t["PE"][0], aln.oracle.align_pe(pe, aln.opt,
                                                id0=PE_PAIRS)[0],
                "int64 PE SAM against Oracle.align_pe")
+    i32 = {k: f"int32 {t32[k][1]:.2f} s" if t32 else
+           "int32: phases 3 and 5" for k in ("SE", "PE")}
     print(f"int64: index and LUT widened to {aln64.didx.pos_dtype}; SE "
-          f"{se.n} x {READ_LEN} bp ({t['SE'][1]:.2f} s; int32 "
-          f"{t32['SE'][1]:.2f} s) and PE {pe.n // 2} pairs ({t['PE'][1]:.2f}"
-          f" s; int32 {t32['PE'][1]:.2f} s) SAM byte-equal to the int32 "
-          f"aligner's and to the oracle's; rescue tasks "
+          f"{se.n} x {READ_LEN} bp ({t['SE'][1]:.2f} s; {i32['SE']}) and PE "
+          f"{pe.n // 2} pairs ({t['PE'][1]:.2f} s; {i32['PE']}) SAM "
+          f"byte-equal to the int32 aligner's and to the oracle's; rescue "
+          f"tasks "
           f"{aln64.stats.get('rescue_tasks', 0)}, results missing {misses}; "
           f"K1 launches {k1}, K2 launches {k2} [{card}]", flush=True)
     if misses or k1 <= 0 or k2 <= 0:
@@ -2112,6 +2199,7 @@ CLASSIFY_FAST_READS = 2048   # phase 16: the oracle's counts, SMEMs + seeds
 CLASSIFY_FULL_READS = 256    # ... and with chains and regions
 ORACLE_SAMPLE = 512          # most reads the oracle's ms a read is taken on
 TUNE_REPS = 3                # tune_budgets: best of 3 steady worker1 calls
+FULL_CALL_TUNE_REPS = 1      # ... at 4.6 Mbp in the full call (cut)
 # tune_budgets at 4.6 Mbp in the full call (cut from the seven of the
 # diag call for time): the base and each dense budget of the LUT walk
 # doubled (fm_dense 16 -> 8, offdiag_dense 8 -> 4)
@@ -2158,10 +2246,11 @@ def oracle_ms(aln, batch, rows) -> tuple:
     return len(rows), (time.perf_counter() - t0) * 1e3 / len(rows)
 
 
-def diag_bench(aln, card: str, variants=None) -> dict:
+def diag_bench(aln, card: str, variants=None, reps: int = TUNE_REPS) \
+        -> dict:
     """Phase 16 at 4.6 Mbp: diag_caps and tune_budgets' ``variants`` (the
-    base first; the seven of its default sweep when None) on the bench
-    batch of 4096 reads, at the default caps."""
+    base first; the seven of its default sweep when None; best of
+    ``reps``) on the bench batch of 4096 reads, at the default caps."""
     from tpubwa_torch.tools import bench_world, diag_caps, tune_budgets
     batch = bench_world.reads(aln.idx, BATCH)
     caps = diag_caps.diag_caps(aln, batch)
@@ -2169,7 +2258,7 @@ def diag_bench(aln, card: str, variants=None) -> dict:
     print(f"diag_caps: {json.dumps(caps)} [{card}]", flush=True)
     check_cumulative(caps["overflow"], "diag_caps")
     tune = tune_budgets.tune_budgets(
-        aln, batch, variants or tune_budgets.DEFAULT_VARIANTS, reps=TUNE_REPS)
+        aln, batch, variants or tune_budgets.DEFAULT_VARIANTS, reps=reps)
     for row in tune["variants"]:
         print(f"tune_budgets {row['variant']:32s} w1={row['w1_ms']:7.1f} ms "
               f"(first {row['first_ms']:.1f} ms) ovf={row['overflow']:5d}/"
@@ -2185,13 +2274,15 @@ def diag_bench(aln, card: str, variants=None) -> dict:
     return dict(caps=caps, tune=tune)
 
 
-def diag_scale_world(aln, g, card: str, variants=SCALE_VARIANTS) -> dict:
+def diag_scale_world(aln, g, card: str, variants=SCALE_VARIANTS,
+                     steady: bool = True) -> dict:
     """Phase 16 at 64 Mbp: diag_scale and diag_tier2 on 4096 reads,
     classify_overflow on the first 2048 (fast) and every 16th read (full),
     the split of seeding overflow into cap- and dense-budget-driven reads
     at tier 1 and tier 2, worker1 with each dense budget relaxed, and the
     oracle's ms a read on the reads tier 1 flagged, on tier 3's input and
-    on those the tiers left, beside the tiers' times."""
+    on those the tiers left, beside the tiers' times (diag_tier2's steady
+    run; its first run without ``steady``)."""
     import numpy as np
     from tpubwa_torch.tools import classify_overflow as co
     from tpubwa_torch.tools import diag_caps, diag_scale, diag_tier2
@@ -2206,7 +2297,7 @@ def diag_scale_world(aln, g, card: str, variants=SCALE_VARIANTS) -> dict:
         raise AssertionError(f"{ds['stage_not_packed']} reads the stages "
                              "flag are not flagged in worker1_packed's "
                              "buffer")
-    dt = diag_tier2.diag_tier2(aln, batch)
+    dt = diag_tier2.diag_tier2(aln, batch, steady)
     diag_tier2.report(dt)
     print(f"diag_tier2: {json.dumps(dt)} [{card}]", flush=True)
     for key in ("tier2_config", "script_config"):
@@ -2279,8 +2370,10 @@ def diag_scale_world(aln, g, card: str, variants=SCALE_VARIANTS) -> dict:
                        ("clean", clean)):
         n, ms = oracle_ms(aln, batch, rows)
         orc[what] = {"reads": n, "of": len(rows), "ms_per_read": ms}
-    orc["tier2_call_ms"] = dt["steady"]["tier2_s"] * 1e3
-    orc["tier3_call_ms"] = dt["steady"]["tier3_s"] * 1e3
+    calls = dt.get("steady", dt["first"])
+    orc["tier_calls_run"] = "steady" if "steady" in dt else "first"
+    orc["tier2_call_ms"] = calls["tier2_s"] * 1e3
+    orc["tier3_call_ms"] = calls["tier3_s"] * 1e3
     orc["tier2_rows"] = int(ovf1.sum()) if dt["tier2_fired"] else 0
     orc["tier3_rows"] = dt["after_tier2"] \
         if dt["after_tier2"] >= aln.TIER3_MIN else 0
@@ -2290,16 +2383,19 @@ def diag_scale_world(aln, g, card: str, variants=SCALE_VARIANTS) -> dict:
 
 
 def diag_phase(aln, aln64, g, card: str, variants=None,
-               scale_variants=SCALE_VARIANTS) -> dict:
+               scale_variants=SCALE_VARIANTS, reps: int = TUNE_REPS,
+               steady: bool = True) -> dict:
     """Phase 16: the overflow diagnostics (tools/diag_*.py,
     classify_overflow.py, tune_budgets.py) at 4.6 and 64 Mbp, K1's
     launches counted from 0 and its first call recorded; tune_budgets
-    runs ``variants`` at 4.6 Mbp, ``scale_variants`` at 64 Mbp."""
+    runs ``variants`` at 4.6 Mbp (best of ``reps``), ``scale_variants``
+    at 64 Mbp; diag_tier2's steady run only with ``steady``."""
     t_phase = time.time()
     first, log = [], []
     (bench, scale), k1 = count_k1(lambda: (
-        diag_bench(aln, card, variants),
-        diag_scale_world(aln64, g, card, scale_variants)), log, first)
+        diag_bench(aln, card, variants, reps),
+        diag_scale_world(aln64, g, card, scale_variants, steady)), log,
+        first)
     no_reference_imported("phase 16's tools")
     print(f"phase 16: K1 launched {k1} times [{card}]", flush=True)
     if k1 <= 0:
@@ -2310,7 +2406,8 @@ def diag_phase(aln, aln64, g, card: str, variants=None,
     return dict(first=first[0], k1=k1, bench=bench, scale=scale)
 
 
-PROFILE_REPS = 3        # phase 17: time_stages' and time_extend's reps
+PROFILE_REPS = 3        # phase 17: profile_phases', time_stages' and
+                        # time_extend's reps
 FULL_CALL_REPS = 1      # ... in the full call (cut for time)
 PARITY_READS = 2048     # phase 17: parity's SE reads (2% / 0.2% errors)
 FULL_CALL_PE_PAIRS = 512   # profile_pe's pairs in the full call (cut)
@@ -2324,24 +2421,26 @@ def tool_line(name: str, r: dict, card: str):
     print(f"{name}: {json.dumps(keep)} [{card}]", flush=True)
 
 
-def profile_tools(aln, card: str, reps: int, pe_pairs: int) -> dict:
+def profile_tools(aln, card: str, reps: int, pe_pairs: int,
+                  round_engine: bool = True) -> dict:
     """Phase 17's tools on the 4.6 Mbp bench world (profile_pe on batches
-    of pe_pairs pairs); returns K1's first kernel-row inputs and K2's
-    first forward call's."""
+    of pe_pairs pairs; time_extend's round-engine rows only with
+    ``round_engine``); returns K1's first kernel-row inputs and K2's first
+    forward call's."""
     from tpubwa_torch.pair import rescue
     from tpubwa_torch.tools import (bench_world, parity, profile_finish,
                                     profile_pe, profile_phases, time_extend,
                                     time_stages)
     batch = bench_world.reads(aln.idx, BATCH)
-    r = profile_phases.profile_phases(aln, batch)
+    r = profile_phases.profile_phases(aln, batch, reps=reps)
     profile_phases.report(r)
     tool_line("profile_phases", r, card)
     r = time_stages.time_stages(aln, BATCH, reps=reps)
     time_stages.report(r)
     tool_line("time_stages", r, card)
     k1_args = []
-    for round_engine in (False, True):
-        r = time_extend.time_extend(aln, BATCH, round_engine,
+    for engine in (False, True)[:1 + round_engine]:
+        r = time_extend.time_extend(aln, BATCH, engine,
                                     reps=reps, record=k1_args)
         time_extend.report(r)
         tool_line(f"time_extend ({r['engine']})", r, card)
@@ -2382,15 +2481,17 @@ def profile_tools(aln, card: str, reps: int, pe_pairs: int) -> dict:
 
 
 def profile_phase(aln, card: str, reps: int = PROFILE_REPS,
-                  pe_pairs: int = PE_PAIRS) -> dict:
+                  pe_pairs: int = PE_PAIRS, round_engine: bool = True) \
+        -> dict:
     """Phase 17: the profiling tools and the parity spot check on the
     4.6 Mbp bench world, K1's and K2's launches counted from 0;
-    time_stages and time_extend take the best of ``reps``."""
+    profile_phases, time_stages and time_extend take the best of
+    ``reps``; time_extend's round-engine rows run with ``round_engine``."""
     from tpubwa_torch.ops import sw_local
     t_phase = time.time()
     sw_local.ksw_local.launches = 0
-    out, k1 = count_k1(lambda: profile_tools(aln, card, reps, pe_pairs),
-                       [])
+    out, k1 = count_k1(lambda: profile_tools(aln, card, reps, pe_pairs,
+                                             round_engine), [])
     k2 = sw_local.ksw_local.launches
     no_reference_imported("phase 17's tools")
     print(f"phase 17: K1 launched {k1} times, K2 {k2} times [{card}]",
@@ -2445,6 +2546,8 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "workload",
               "pe_150bp_reads_per_s", "pe_fallback_pct", "setup_s")
 FULL_CALL_BENCH_TIMED = 1   # phase 19's timed SE batches in the full call
 DRYRUN_DEVICES = 8          # phase 20's mesh (the reference's __main__)
+FULL_CALL_LOAD_PER_DEV = 512   # phase 20's LOAD test in the full call (cut
+                               # from the tool's 1024 reads an entry)
 
 
 def bench_phase(card: str, timed: int = None) -> dict:
@@ -2490,17 +2593,20 @@ def bench_phase(card: str, timed: int = None) -> dict:
     return dict(line=line, launches=tuple(int(x) for x in m.groups()))
 
 
-def dryrun_phase(card: str) -> dict:
+def dryrun_phase(card: str, load_per_dev: int = None) -> dict:
     """Phase 20: tools/dryrun.py on the card. entry() with n >= 1 on every
     read; dryrun_multichip(8) with the LOAD test, which raises on any of
     the reference's asserts; its first mesh call (the int64 tiny world)
     held to worker1_step on the blocks and, on every read that overflows
     in neither run, on the whole batch, and the LOAD test's mesh run to its
     one-device run on the whole batch, on those reads (tolerance 0); the
-    file it wrote holds what it returned. Records K1's first call."""
+    file it wrote holds what it returned. Records K1's first call. With
+    ``load_per_dev`` the LOAD test runs that many reads an entry in place
+    of dryrun.LOAD_PER_DEV."""
     import torch
     from tpubwa_torch.tools import dryrun
     t_phase = time.time()
+    per_dev = dryrun.LOAD_PER_DEV
     fn, args = dryrun.entry("cuda")
     score, n = fn(*args)
     torch.cuda.synchronize()
@@ -2522,12 +2628,15 @@ def dryrun_phase(card: str) -> dict:
     load = os.environ.get("TPUBWA_DRYRUN_LOAD")
     os.environ["TPUBWA_DRYRUN_LOAD"] = "1"
     dryrun.worker1_sharded = recorder
+    dryrun.LOAD_PER_DEV = load_per_dev or per_dev
     k1_first, k1_log = [], []
     try:
         scaling, k1 = count_k1(lambda: dryrun.dryrun_multichip(
             DRYRUN_DEVICES, "cuda", out=path), k1_log, k1_first)
+        nb = dryrun.LOAD_PER_DEV * DRYRUN_DEVICES
     finally:
         dryrun.worker1_sharded = real
+        dryrun.LOAD_PER_DEV = per_dev
         if load is None:
             os.environ.pop("TPUBWA_DRYRUN_LOAD")
         else:
@@ -2547,7 +2656,6 @@ def dryrun_phase(card: str) -> dict:
           f"{seqs.shape[0]} reads: "
           f"{held_to_whole(out, blocks, whole, 'the dry run')} [{card}]",
           flush=True)
-    nb = dryrun.LOAD_PER_DEV * DRYRUN_DEVICES
     load_runs = {m.size: o for m, _, s, _, _, _, o in calls
                  if s.shape[0] == nb}
     if set(load_runs) != {1, DRYRUN_DEVICES}:
@@ -2776,11 +2884,233 @@ def pe_window_phase(card: str) -> dict:
         raise AssertionError(f"phase 22 launched K1 {k1} and K2 {k2} times")
     return secs
 
+OPTION_SE_READS = 4096      # phase 23's SE batch at each set (options call)
+OPTION_PE_PAIRS = 2048      # ... and its PE batch, in pairs
+FULL_CALL_OPTION_SETS = ("scaled2", "pacbio")   # (b) in the full call
+FULL_CALL_OPTION_SE_READS = 1024                # ... its SE batch
+FULL_CALL_OPTION_PE_PAIRS = 512                 # ... and PE pairs
 
-def k1_entry(name: str, path: str, args, n_l: int, card: str) -> tuple:
+
+def option_sweeps(names, card: str, short: bool = False) -> dict:
+    """Phase 23 (a): K1 and K2 against their plain versions on the card at
+    each option set's scores (production shapes and edge sweep, the
+    packed key's rows at the set's match score; with ``short``, the edge
+    rows at the main path's widths alone). Sets whose kernel arguments
+    equal an earlier set's (scores, band width, z-drop, rescue minimum
+    score) are held by that set's sweep. Returns the worst error of each
+    kernel."""
+    t0 = time.time()
+    seen, worst = {}, [0, 0]
+    for name in names:
+        opt, scoring = set_options(name)
+        key = (tuple(sorted(scoring.items())), opt.w, opt.zdrop,
+               opt.min_seed_len * opt.a)
+        if key in seen:
+            print(f"options: {name}'s kernel arguments are {seen[key]}'s, "
+                  f"held by its sweep [{card}]", flush=True)
+            continue
+        seen[key] = name
+        t1 = time.time()
+        worst[0] = max(worst[0], parity(card, name, short))
+        worst[1] = max(worst[1], parity_k2(card, name, short))
+        print(f"options: {name} sweeps of K1 and K2 bit-equal to their "
+              f"plain versions in {time.time() - t1:.1f} s [{card}]",
+              flush=True)
+    print(f"options: the sweeps took {time.time() - t0:.1f} s [{card}]",
+          flush=True)
+    return dict(k1=worst[0], k2=worst[1])
+
+
+def option_batches(idx, se_reads: int, pe_pairs: int):
+    """Phase 23's SE batch (bench reads: 100 bp, 1% substitutions, 0.1%
+    indels, seed 7), PE batch (150 bp pairs, inserts 400 +- 50, seed 11;
+    the reads of phases 3 and 5) and the PE batch's records."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import bench_world
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    recs = fastx.simulate_reads(fwd, pe_pairs, read_len=PE_READ_LEN,
+                                error_rate=0.01, indel_rate=0.001, seed=11,
+                                paired=True, insert_mean=400, insert_std=50)
+    return (bench_world.reads(idx, se_reads),
+            fastx.batch_reads(recs, max_len=PE_READ_LEN), recs)
+
+
+def option_set_run(idx, name: str, se, pe, card: str) -> dict:
+    """Phase 23 (b) at one set: an Aligner at the set's options on the
+    card aligns the SE batch and the PE batch, each with the kernels'
+    counts set to 0 just before and read just after; both SAMs byte-equal
+    to the oracle's under the same options, no rescue result missing, K1
+    launched on both paths and K2 on the PE path. Returns the numbers,
+    the first K1 call's and first forward K2 call's inputs and the
+    aligner."""
+    import torch
+    from tpubwa_torch.extend import worker
+    from tpubwa_torch.ops import sw, sw_local
+    from tpubwa_torch.pair import rescue
+    from tpubwa_torch.pipeline import Aligner
+    from tpubwa_torch.tools import bench_world, option_sets
+    opt, scoring = set_options(name)
+    t0 = time.time()
+    aln = Aligner(idx, opt, device=DEVICE, lut_cache=bench_world.lut_path())
+    setup = time.time() - t0
+    k1_first, k2_first, log = [], [], []
+    real_k1, real_k2 = worker.ksw_extend, rescue.ksw_local
+
+    def k2_recorder(*args, want_sub, **kw):
+        if want_sub and not k2_first:
+            k2_first.append(tuple(a.clone() for a in args))
+        return real_k2(*args, want_sub=want_sub, **kw)
+    worker.ksw_extend = k1_recorder(real_k1, k1_first, log)
+    rescue.ksw_local = k2_recorder
+    out = dict(name=name, flags=" ".join(option_sets.SETS[name]))
+    try:
+        for path, batch in (("SE", se), ("PE", pe)):
+            aln.stats = {"reads": 0, "fallback_reads": 0}
+            aln.oracle._lib.tb_rescue_miss_reset()
+            torch.cuda.synchronize()
+            sw.ksw_extend.launches = sw_local.ksw_local.launches = 0
+            t1 = time.perf_counter()
+            sam = (aln.align_se if path == "SE" else aln.align_pe)(batch,
+                                                                  id0=0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            k1, k2 = sw.ksw_extend.launches, sw_local.ksw_local.launches
+            misses = aln.oracle._lib.tb_rescue_miss_count()
+            st = dict(aln.stats)
+            want = aln.oracle.align_se(batch, opt, id0=0) if path == "SE" \
+                else aln.oracle.align_pe(batch, opt, id0=0)[0]
+            first_diff(sam, want, f"phase 23 {name} {path} SAM against the "
+                       "oracle at the same options")
+            out[path] = dict(
+                reads=batch.n, s=dt, reads_per_s=batch.n / dt,
+                fallback=st["fallback_reads"] / max(st["reads"], 1),
+                tier1_ovf=st.get("tier1_ovf", 0),
+                tier2_rows=st.get("tier2_rows", 0),
+                tier3_rows=st.get("tier3_rows", 0),
+                rescue_tasks=st.get("rescue_tasks", 0), misses=misses,
+                k1=k1, k2=k2)
+            print(f"options {name} ({out['flags']}) {path}: {batch.n} reads "
+                  f"SAM byte-equal to the oracle in {dt:.3f} s "
+                  f"({batch.n / dt:.1f} reads/s); fallback share "
+                  f"{out[path]['fallback']:.5f}; tier1 overflow "
+                  f"{out[path]['tier1_ovf']}; tier2 rows "
+                  f"{out[path]['tier2_rows']}, tier3 rows "
+                  f"{out[path]['tier3_rows']}; rescue tasks "
+                  f"{out[path]['rescue_tasks']}, results missing {misses}; "
+                  f"K1 launches {k1}, K2 launches {k2} [{card}]", flush=True)
+            if misses:
+                raise AssertionError(f"phase 23 {name}: {misses} rescue "
+                                     "results missing")
+            if k1 <= 0 or (path == "PE" and k2 <= 0):
+                raise AssertionError(f"phase 23 {name} {path} launched K1 "
+                                     f"{k1} and K2 {k2} times")
+    finally:
+        worker.ksw_extend, rescue.ksw_local = real_k1, real_k2
+    out.update(setup=setup, k1_first=k1_first[0], k2_first=k2_first[0],
+               scoring=scoring, zdrop=opt.zdrop, aln=aln)
+    return out
+
+
+def option_cli(aln, recs, card: str) -> dict:
+    """Phase 23 (c): `python -m tpubwa_torch align idx r_1.fq r_2.fq
+    --platform cuda` with the scaled2 flags on the first 512 pairs of
+    ``recs`` (interleaved): the file byte-equal to the header +
+    Oracle.align_pe under the same options (``aln``, the scaled2 aligner
+    of (b)), K1 and K2 launched."""
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import bench_world
+    from tpubwa_torch.tools.option_sets import SETS
+    d = smoke_dir()
+    pe = recs[:2 * FULL_CALL_OPTION_PE_PAIRS]
+    fastx.write_fastq(d / "o_1.fq", pe[0::2])
+    fastx.write_fastq(d / "o_2.fq", pe[1::2])
+    pe = [r for m in zip(fastx.iter_fastq(d / "o_1.fq"),
+                         fastx.iter_fastq(d / "o_2.fq")) for r in m]
+    want = aln.sam_header() + aln.oracle.align_pe(
+        fastx.batch_reads(pe, max_len=PE_READ_LEN), aln.opt, id0=0)[0]
+    t0 = time.time()
+    err = run_cli(["align", str(bench_world.BUILD /
+                                f"smoke_index_{GENOME_LEN}.npz"),
+                   str(d / "o_1.fq"), str(d / "o_2.fq"), "-o",
+                   str(d / "o_pe.sam"), "--platform", DEVICE,
+                   "--batch-size", str(len(pe)), *SETS["scaled2"]],
+                  "CLI PE at scaled2")
+    wall = time.time() - t0
+    first_diff((d / "o_pe.sam").read_text(), want, "CLI PE SAM at scaled2 "
+               "against the header + Oracle.align_pe")
+    k1, k2 = cli_launches(err)
+    print(f"options CLI PE ({' '.join(SETS['scaled2'])}): "
+          f"{len(pe) // 2} pairs, whole file byte-equal to the header + "
+          f"Oracle.align_pe at the same options; the CLI says: "
+          f"{cli_line(err, 'total')}; process wall {wall:.1f} s; K1 "
+          f"launches {k1}, K2 launches {k2} [{card}]", flush=True)
+    if k1 <= 0 or k2 <= 0:
+        raise AssertionError(f"the CLI at scaled2 launched K1 {k1} and K2 "
+                             f"{k2} times")
+    return dict(wall=wall, k1=k1, k2=k2)
+
+
+def options_phase(card: str, sweep_names, names, se_reads: int,
+                  pe_pairs: int, idx=None, short: bool = False) -> dict:
+    """Phase 23: the alignment options path. (a) the kernels' sweeps at
+    the scores of ``sweep_names`` (``short``: at the main path's widths
+    alone); (b) an SE batch of se_reads and a PE
+    batch of pe_pairs through Aligner(opt, device="cuda") at each set of
+    ``names``, SAM byte-equal to the oracle's; (c) the command line at
+    scaled2. Returns (a)'s worst errors and (b)'s runs by set."""
+    from tpubwa_torch.tools import bench_world
+    t0 = time.time()
+    worst = option_sweeps(sweep_names, card, short)
+    if idx is None:
+        idx = bench_world.get_index()
+    se, pe, recs = option_batches(idx, se_reads, pe_pairs)
+    runs = {}
+    for name in names:
+        t1 = time.time()
+        runs[name] = option_set_run(idx, name, se, pe, card)
+        aln = runs[name].pop("aln")
+        if name == "scaled2":
+            cli_res = option_cli(aln, recs, card)
+        del aln
+        print(f"options: {name} took {time.time() - t1:.1f} s (aligner "
+              f"set-up {runs[name]['setup']:.1f} s) [{card}]", flush=True)
+    print(f"phase 23 took {time.time() - t0:.1f} s [{card}]", flush=True)
+    return dict(worst=worst, runs=runs, cli=cli_res)
+
+
+def option_kernels(opts: dict, names, card: str) -> list:
+    """The {"kernels": [...]} entries of phase 23 (option_entries), each
+    with the worst error of its kernel's sweeps at the sets' scores."""
+    w = opts["worst"]
+    return [kernel_entry(*e[:5], w["k1" if e[2] == "ksw_extend.cu" else
+                                    "k2"], e[5])
+            for e in option_entries(opts, names, card)]
+
+
+def option_entries(opts: dict, names, card: str) -> list:
+    """Phase 6 for phase 23: K1 on the first call and K2 on the first
+    forward call of (b) at each set of ``names``, held to their plain
+    versions at the set's scores and timed beside their bounds."""
+    out = []
+    for name in names:
+        r = opts["runs"][name]
+        out.append(k1_entry(f"ksw_extend_{name}", f"SE + PE at {name} "
+                            f"({r['flags']}; phase 23)", r["k1_first"],
+                            r["SE"]["k1"] + r["PE"]["k1"], card,
+                            r["scoring"], r["zdrop"]))
+        out.append(k2_entry(f"ksw_local_{name}", f"PE rescue, forward "
+                            f"pass, at {name} (phase 23)", r["k2_first"],
+                            r["PE"]["k2"], card, r["scoring"]))
+    return out
+
+
+def k1_entry(name: str, path: str, args, n_l: int, card: str,
+             scoring=None, zdrop=100) -> tuple:
     """K1 on a path's first call (``args``), held to its plain version and
-    timed beside its bound; ``n_l`` is the path's launch count."""
-    r = k1_measure(args, generic=True)
+    timed beside its bound, at ``scoring`` and ``zdrop`` (bwa's defaults
+    unless given); ``n_l`` is the path's launch count."""
+    r = k1_measure(args, zdrop=zdrop, generic=True, scoring=scoring)
     print(f"K1 {name} first call N={args[0].shape[0]} "
           f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
           f"{r['max_abs_err']} (tolerance 0) kernel {r['ms']:.4f} ms, "
@@ -2818,11 +3148,12 @@ def new_path_entries(longr, i64, scale, card: str) -> list:
     return out
 
 
-def k2_entry(name: str, path: str, args, n_l: int, card: str) -> tuple:
+def k2_entry(name: str, path: str, args, n_l: int, card: str,
+             scoring=None) -> tuple:
     """K2 (forward pass) on a path's first forward call (``args``), held
-    to its plain version and timed beside its bound; ``n_l`` is the
-    path's launch count."""
-    m = k2_measure(args, True, generic=True)
+    to its plain version and timed beside its bound, at ``scoring``
+    (bwa's defaults unless given); ``n_l`` is the path's launch count."""
+    m = k2_measure(args, True, generic=True, scoring=scoring)
     print(f"K2 {name} first forward call N={args[0].shape[0]} "
           f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
           f"{m['max_abs_err']} (tolerance 0) kernel {m['ms']:.4f} ms, "
@@ -2897,8 +3228,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     # the full call and pe_window build the bench world's caches beside
     # phases 1-2
-    bprep = start_bench_prepare() if sys.argv[1:] in ([], ["pe_window"]) \
-        else None
+    bprep = start_bench_prepare() \
+        if sys.argv[1:] in ([], ["pe_window"], ["options"]) else None
     atexit.register(stop, bprep)
     timed_phase("1 (build)", build)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2962,6 +3293,17 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phases 19-21 only"}))
         return 0
+    if sys.argv[1:] == ["options"]:
+        from tpubwa_torch.tools.option_sets import NAMES
+        wait_prepare(bprep, "bench world prepare", card)
+        opts = timed_phase("23 (options)", options_phase, card, NAMES, NAMES,
+                           OPTION_SE_READS, OPTION_PE_PAIRS)
+        print(json.dumps({"kernels": option_kernels(opts, NAMES, card)}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phase 23 only"}))
+        return 0
     if sys.argv[1:] == ["pe_window"]:
         wait_prepare(bprep, "bench world prepare", card)
         timed_phase("22 (PE window)", pe_window_phase, card)
@@ -3002,10 +3344,17 @@ def main() -> int:
     # phase 21, one pass over phase 3's timed batches, before any build
     # process runs beside it and before phase 4's profiler trace
     stream = timed_phase("21 (stream)", stream_phase, aln, timed_se, wants,
-                         BATCH, card, (TIMED_BATCHES,), 1, "abd")
+                         BATCH, card, (TIMED_BATCHES,), 1, "bd")
+    # (a), the stream, over the same batches is phase 3's timed run
+    stream[("a", TIMED_BATCHES)] = [BATCH / rps]
     timed_phase("4 (stages)", se_stages, aln, timed_se, card)
     k1_pe_args, k2_fwd, k2_rev, pe_k1, pe_k2, pe_rps = timed_phase(
         "5 (e2e PE)", pe_e2e, aln, card)
+    # phase 23, before the 64 Mbp build process starts beside phases 7-14
+    from tpubwa_torch.tools.option_sets import NAMES
+    opts = timed_phase("23 (options)", options_phase, card, NAMES,
+                       FULL_CALL_OPTION_SETS, FULL_CALL_OPTION_SE_READS,
+                       FULL_CALL_OPTION_PE_PAIRS, aln.idx, True)
     # the 64 Mbp caches (and phase 20's 2 Mbp ones) build on the host
     # while phases 7-14 run
     prep = start_scale_prepare()
@@ -3013,14 +3362,14 @@ def main() -> int:
     phase = beside_build(prep, time.time())
     try:
         t_new = time.time()
-        cli_res = phase("7-9 (CLI)", cli_phases, aln, card)
+        cli_res = phase("7-9 (CLI)", cli_phases, aln, card, False)
         phase("10 (multihost)", multihost_phase, aln, card)
         anc = phase("11 (anchor)", anchor_phase, aln, card)
         phase("12 (dist)", dist_phase, aln, card)
         print(f"phases 7-12 (CLI, shards, multihost, anchor, dist) took "
               f"{time.time() - t_new:.1f} s", flush=True)
         longr = phase("13 (long)", long_phase, aln, card)
-        i64 = phase("14 (int64)", int64_phase, aln, card)
+        i64 = phase("14 (int64)", int64_phase, aln, card, False)
         scale = timed_phase("15 (scale)", scale_phase, card, prep,
                             FULL_CALL_SCALE_READS, FULL_CALL_SCALE_PE_PAIRS,
                             False)
@@ -3030,13 +3379,14 @@ def main() -> int:
         stop(dprep)
     diag = timed_phase("16 (diag)", diag_phase, aln, scale["aln"],
                        scale["g"], card, FULL_CALL_VARIANTS,
-                       FULL_CALL_SCALE_VARIANTS)
+                       FULL_CALL_SCALE_VARIANTS, FULL_CALL_TUNE_REPS, False)
     prof = timed_phase("17 (profile)", profile_phase, aln, card,
-                       FULL_CALL_REPS, FULL_CALL_PE_PAIRS)
+                       FULL_CALL_REPS, FULL_CALL_PE_PAIRS, False)
     timed_phase("18 (rehearsal)", rehearsal_phase, scale["aln"], card)
     bench = timed_phase("19 (bench)", bench_phase, card,
                         FULL_CALL_BENCH_TIMED)
-    dry = timed_phase("20 (dryrun)", dryrun_phase, card)
+    dry = timed_phase("20 (dryrun)", dryrun_phase, card,
+                      FULL_CALL_LOAD_PER_DEV)
     t6 = time.time()
     r1 = {}
     for path, args, n_l in (("SE", k1_args, launches),
@@ -3071,6 +3421,7 @@ def main() -> int:
     new = new_path_entries(longr, i64, scale, card) + \
         [diag_entry(diag, card)] + profile_entries(prof, card) + \
         [dryrun_entry(dry, card)]
+    opt_kernels = option_kernels(opts, FULL_CALL_OPTION_SETS, card)
     print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
     # one entry per kernel and path: K1 on the SE and the PE path (other
     # shapes, its own launch count), K2's two template instances, then
@@ -3088,7 +3439,7 @@ def main() -> int:
                      231, pe_k2[False], worst2, r2[False]),
     ] + [kernel_entry(name, path, src, line, n_l,
                       worst if src == "ksw_extend.cu" else worst2, m)
-         for name, path, src, line, n_l, m in new]
+         for name, path, src, line, n_l, m in new] + opt_kernels
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
     print("stream s a batch over phase 3's batches: " + ", ".join(

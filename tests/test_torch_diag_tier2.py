@@ -98,3 +98,20 @@ def test_diag_tier2_equals_reference(tier3_world, monkeypatch):
     for a, b, c in zip(mine, aln._tiers(batch, n, ovf, l_rep, flat), final):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
+
+
+def test_diag_tier2_without_steady_run_counts_the_same(tier3_world, capsys):
+    """steady=False (chip_smoke.py's full call) runs the tiers once: the
+    same counts and rows as with the steady run, no "steady" times, and a
+    report without the steady line."""
+    aln, _, batch = tier3_world
+    full = diag_tier2.diag_tier2(aln, batch)
+    once = diag_tier2.diag_tier2(aln, batch, steady=False)
+    assert "steady" in full and "steady" not in once
+    for k in ("tier1_overflow", "tier2_fired", "after_tier2", "after_tiers",
+              "after_tier2_rows", "left_rows", "tier2_config",
+              "script_config"):
+        assert once[k] == full[k], k
+    diag_tier2.report(once)
+    out = capsys.readouterr().out
+    assert "# tier2: ovf" in out and "steady" not in out

@@ -82,17 +82,19 @@ def breakdown(aln, batch, rows, cfgs) -> dict:
             "regs_max": int(f["n_regs"].max())}
 
 
-def diag_tier2(aln, batch) -> dict:
+def diag_tier2(aln, batch, steady: bool = True) -> dict:
     """Tier-1 overflow, the overflow after tier 2 and after the tiers (a
-    first and a steady run, each tier timed), and the stage breakdown of
-    the reads still flagged under tier 2's configuration and under the
-    reference script's."""
+    first and, with ``steady``, a steady run, each tier timed), and the
+    stage breakdown of the reads still flagged under tier 2's
+    configuration and under the reference script's."""
     t0 = time.perf_counter()
     buf = aln.worker1_packed(batch.seqs, batch.lens).cpu().numpy()
     n, ovf, l_rep, flat = aln._unpack_host(buf, batch.n)
     tier1_s = time.perf_counter() - t0
     (_, left, _, _), first = run_tiers(aln, batch, n, ovf, l_rep, flat)
-    _, steady = run_tiers(aln, batch, n, ovf, l_rep, flat)
+    runs = {"first": first}
+    if steady:
+        runs["steady"] = run_tiers(aln, batch, n, ovf, l_rep, flat)[1]
     rows = np.flatnonzero(left)
     r = {"batch": batch.n, "tier1_overflow": int(ovf.sum()),
          "tier2_fired": first["tier2_fired"],
@@ -100,8 +102,8 @@ def diag_tier2(aln, batch) -> dict:
          "after_tiers": len(rows), "tier1_s": tier1_s,
          "after_tier2_rows": first["after_tier2"],
          "left_rows": rows.tolist(),
-         "first": {k: first[k] for k in ("tier2_s", "tier3_s")},
-         "steady": {k: steady[k] for k in ("tier2_s", "tier3_s")},
+         **{name: {k: t[k] for k in ("tier2_s", "tier3_s")}
+            for name, t in runs.items()},
          "device": aln.device.type}
     if len(rows):
         r["tier2_config"] = breakdown(aln, batch, rows,
@@ -125,12 +127,13 @@ def report(r: dict) -> None:
     """The reference script's lines."""
     B = r["batch"]
     print(f"# tier1: ovf {r['tier1_overflow']}/{B} ({r['tier1_s']:.1f}s)")
-    f, s = r["first"], r["steady"]
+    f, s = r["first"], r.get("steady")
     print(f"# tier2: ovf {r['after_tiers']}/{B} "
           f"({f['tier2_s'] + f['tier3_s']:.1f}s first; "
           f"{r['after_tier2']} after tier 2 alone)")
-    print(f"# tier2 steady: {s['tier2_s'] + s['tier3_s']:.2f}s (tier 2 "
-          f"{s['tier2_s']:.2f}s, tier 3 {s['tier3_s']:.2f}s)")
+    if s:
+        print(f"# tier2 steady: {s['tier2_s'] + s['tier3_s']:.2f}s (tier "
+              f"2 {s['tier2_s']:.2f}s, tier 3 {s['tier3_s']:.2f}s)")
     for key, label in (("tier2_config", "big"),
                        ("script_config", "script's big")):
         if key in r:

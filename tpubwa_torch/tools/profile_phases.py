@@ -28,9 +28,10 @@ ROWS = ("seed (LUT SMEM walk)", "sa_walk", "chain", "filter", "extend",
         "worker1_packed (fused)", "align_se total (incl host+tier2)")
 
 
-def profile_phases(aln, batch) -> dict:
-    """Each stage's best-of-REPS time on ``batch``, the fused worker1's
-    and one align_se's; the seeding overflow and the SAM's line count."""
+def profile_phases(aln, batch, reps: int = REPS) -> dict:
+    """Each stage's best-of-``reps`` time on ``batch``, the fused
+    worker1's and one align_se's; the seeding overflow and the SAM's line
+    count."""
     import torch
 
     from ..chain.device import chain_filter, chain_seeds, seeds_from_smems
@@ -45,7 +46,7 @@ def profile_phases(aln, batch) -> dict:
         r = f()                          # warm-up
         sync(aln)
         best = float("inf")
-        for _ in range(REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
             r = f()
             sync(aln)
@@ -65,7 +66,7 @@ def profile_phases(aln, batch) -> dict:
     sam = aln.align_se(batch)
     t_total = time.perf_counter() - t0
     times = (t_seed, t_sa, t_chain, t_filter, t_ext, t_w1, t_total)
-    return {"batch": batch.n, "reps": REPS, "device": aln.device.type,
+    return {"batch": batch.n, "reps": reps, "device": aln.device.type,
             "rows": [{"row": k, "ms": v * 1e3, "reads_per_s": batch.n / v}
                      for k, v in zip(ROWS, times)],
             "seed_overflows": int(smems["overflow"].sum()),
