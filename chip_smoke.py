@@ -58,9 +58,10 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                --platform cuda` in a subprocess: the whole file byte-equal
                to Aligner.sam_header() + the oracle's align_se; the CLI's
                own "total ... reads/s" line and kernel launch counts;
-  8. CLI PE  — 2 batches of 2048 pairs of 150 bp (inserts 400 +- 50) as
-               r_1.fq / r_2.fq through `align idx r_1.fq r_2.fq`: byte-equal
-               to the header + Oracle.align_pe; K2 launched;
+  8. CLI PE  — 2 batches of 2048 pairs of 150 bp (inserts 400 +- 50; 1
+               batch in the full call) as r_1.fq / r_2.fq through `align
+               idx r_1.fq r_2.fq`: byte-equal to the header +
+               Oracle.align_pe; K2 launched;
   9. shards  — an SE run with --shard-dir, then the same command again (it
                aligns no batch); merge of the shards equals phase 7's file;
                sort gives coordinate order; index on a FASTA of the first
@@ -110,14 +111,14 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                the genome, index and LUT built (cold) by a --prepare process
                started before phase 7 (phases 7-14 run beside it, and each
                prints whether it still ran at its end), one warm-up and 1
-               timed streamed batch of 4096 SE reads (2 in the scale
-               call), every line
+               timed streamed batch of 2048 SE reads in the full call (2
+               of 4096 in the scale call), every line
                byte-equal to the oracle; tier-1 overflow per batch and
                whether tier 2 fired (if it fired on no batch, a batch
                built from the overflow reads opens its gate); the tier-2
                call's time and, in the scale call, a stage split of that
                batch (tiers, finish, the whole batch); the PE row (1024
-               pairs, 512 in the full call, byte-equal to
+               pairs, 256 in the full call, byte-equal to
                Oracle.align_pe, no rescue result missing).
  16. diag    — the overflow diagnostics (tpubwa_torch/tools/diag_caps.py,
                tune_budgets.py, diag_scale.py, diag_tier2.py,
@@ -152,9 +153,11 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                4.6 Mbp bench world with phase 3's aligner: profile_phases,
                time_stages and time_extend (both engines' rows; one timed
                rep after the warm-up in the full call, best of 3 in the
-               profile call) on 4096 reads, profile_finish on 4096 reads,
+               profile call) on 4096 reads, profile_finish on 4096 reads
+               (those four on 2048 reads in the full call),
                profile_pe on 2048 pairs (512 in the full call), parity
-               on 2048 reads (2% / 0.2% errors, seed 3);
+               on 2048 reads (1024 in the full call; 2% / 0.2% errors,
+               seed 3);
                each prints its rows and a JSON line with the card; fails
                if a tool imported JAX or the reference package, parity
                finds a differing line, the 2-thread finish SAM differs
@@ -169,8 +172,10 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                the merged shards hold 2 x 768 records and every line
                equals the header + Oracle.align_pe, batch by batch.
  19. bench   — `python3 bench_torch.py` (bench.py's counterpart) in a
-               subprocess, with TPUBWA_BENCH_TIMED=1 in the full call (cut
-               from bench.py's 8 for time; the bench call keeps 8): one
+               subprocess, with TPUBWA_BENCH_TIMED=1 and
+               TPUBWA_BENCH_BATCH=2048 in the full call (cut from
+               bench.py's 8 batches of 4096 for time; the bench call
+               keeps them): one
                JSON line with every key of bench.py's plus "card"; fails
                unless both rates are above 0, the card is this card and
                K1 (SE and PE) and K2 launched in its timed runs;
@@ -237,12 +242,46 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                build process starts): (a) at all five sets, (b) at scaled2
                and pacbio on 1024 reads and 512 pairs; in the options call
                (b) at all five sets on 4096 reads and 2048 pairs.
-Phases 7-20 and 23 run between phases 5 and 6, each from counts of its
+ 24. contigs — references of many contigs: the bench index re-annotated
+               with the grch38 (195 contigs) and hs38dh (3366) layouts of
+               tpubwa_torch/tools/contig_layouts.py (the same text, so
+               phase 3's LUT cache serves both) under Aligner(...,
+               device="cuda"), the header's @SQ lines in layout order; at
+               each layout the bench reads through align_se_stream, an
+               edge SE batch through align_se (100 bp reads straddling
+               every 8th boundary 30, 50 and 70 bp over it on both
+               strands, reads flush with 64 contigs' starts and ends, 256
+               chimeric 130 + 120 bp reads from two contigs), the bench
+               pairs through align_pe_stream and an edge PE batch through
+               align_pe (256 plain pairs, fragments across every 8th
+               boundary, 128 pairs on two contigs, 64 pairs with a mate
+               that has an error every 7 bases 20 bp before a contig's
+               end), kernel counts set to 0 just before each and read
+               just after, every SAM byte-equal to the oracle at the
+               layout, no rescue result missing; per batch reads/s,
+               fallback share, tier-1 overflow, tier-2/3 rows, primary
+               records on contig 2048 or later (past the packed row's
+               11-bit contig field, so tiers 2 and 3 and the oracle),
+               SA:Z naming another contig, RNEXT another contig, launches;
+               the tiers stage of the bench SE batch at hs38dh against
+               grch38; then the command line: the bench text's first
+               200 kbp as a grch38-layout FASTA with N runs at the start
+               of every 10th contig and the end of every 15th, `index`,
+               `align` SE and two-file PE, `align --shard-dir` + `merge
+               --sort` and `sort`, each file byte-equal to the header +
+               the oracle on that index, chr2 sorted before chr10. In the
+               full call, after phase 23 (before the 64 Mbp build
+               process starts): 1024 bench reads and 512 pairs at both
+               layouts, edge batches at every 32nd boundary (16 flush
+               contigs, 64 chimeras, 32 pairs on two contigs, 16
+               heavy-error pairs), no stage split and no command line.
+Phases 7-20, 23 and 24 run between phases 5 and 6, each from counts of its
 own; phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and
 20 and on phase 17's time_extend kernel row, K2 on the first forward call
-of phase 15 and of phase 17's profile_pe, and K1 on the first call and K2
-on the first forward call of phase 23 (b) at scaled2 and at pacbio (at the
-set's scores), to their plain versions (12 more entries).
+of phase 15 and of phase 17's profile_pe, K1 on the first call and K2 on
+the first forward call of phase 24's hs38dh batches, and K1 on the first
+call and K2 on the first forward call of phase 23 (b) at scaled2 and at
+pacbio (at the set's scores), to their plain versions (14 more entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
 Every phase prints its seconds, and the call its whole seconds. In the
@@ -263,7 +302,9 @@ batches), 21 (windows of 1, 2 and 8 batches, 3 runs a variant) and 20,
 with the kernels line of phase 20's entry; python3 chip_smoke.py
 pe_window the build and phase 22; python3 chip_smoke.py options the build
 and phase 23 at all five sets at full batch, with the kernels line of its
-ten entries, K1 and K2 at each set.)
+ten entries, K1 and K2 at each set; python3 chip_smoke.py contigs the
+build and phase 24 at full depth with its stage split and command line,
+with the kernels line of its two entries.)
 """
 import atexit
 import json
@@ -922,8 +963,9 @@ def print_steps(label: str, out: list, n_reads: int, card: str):
           f"reads [{card}]", flush=True)
 
 
-def stages(aln, batch, id0: int, card: str, label: str = "stage"):
-    """Time one batch stage by stage; each stage ends in a synchronize."""
+def stages(aln, batch, id0: int, card: str, label: str = "stage") -> dict:
+    """Time one batch stage by stage; each stage ends in a synchronize.
+    Returns each stage's seconds."""
     import torch
     from tpubwa_torch.chain.device import (chain_filter, chain_seeds,
                                            seeds_from_smems)
@@ -932,8 +974,8 @@ def stages(aln, batch, id0: int, card: str, label: str = "stage"):
     from tpubwa_torch.seed.lut import collect_smems_lut
     out = []
     step = stepper(out)
-    seqs = torch.as_tensor(batch.seqs).to("cuda").to(torch.int32)
-    lens = torch.as_tensor(batch.lens).to("cuda")
+    seqs = torch.as_tensor(batch.seqs).to(aln.device).to(torch.int32)
+    lens = torch.as_tensor(batch.lens).to(aln.device)
     d, cc = aln.didx, aln.ccfg
     sm = step("seed", lambda: collect_smems_lut(d, aln.lut, seqs, lens,
                                                 aln.scfg))
@@ -951,6 +993,7 @@ def stages(aln, batch, id0: int, card: str, label: str = "stage"):
     if sam != aln.oracle.align_se(batch, aln.opt, id0=id0):
         raise AssertionError("stage-by-stage SAM differs from the oracle")
     print_steps(label, out, batch.n, card)
+    return {name: t for name, t, _, _ in out}
 
 
 def pe_e2e(aln, card: str):
@@ -1189,19 +1232,22 @@ def lut_cache() -> Path:
     return bench_world.lut_path()
 
 
-def cli_env(**extra) -> dict:
+def cli_env(lut: Path = None, **extra) -> dict:
     """The environment of a command-line subprocess: this checkout on the
     path, and the LUT cache phase 3 built (so no process rebuilds it, and
-    two processes never write it at once)."""
+    two processes never write it at once), or ``lut`` for another
+    index."""
     return dict(os.environ, PYTHONPATH=str(REPO),
-                TPUBWA_LUT_CACHE=str(lut_cache()), **extra)
+                TPUBWA_LUT_CACHE=str(lut or lut_cache()), **extra)
 
 
-def run_cli(args: list, what: str, timeout: int = 600) -> str:
-    """Run `python -m tpubwa_torch args` to its end; returns its stderr,
-    raises when it fails."""
+def run_cli(args: list, what: str, timeout: int = 600,
+            lut: Path = None) -> str:
+    """Run `python -m tpubwa_torch args` to its end (with ``lut`` as its
+    LUT cache, phase 3's unless given); returns its stderr, raises when
+    it fails."""
     r = subprocess.run([sys.executable, "-m", "tpubwa_torch", *args],
-                       cwd=str(REPO), env=cli_env(), capture_output=True,
+                       cwd=str(REPO), env=cli_env(lut), capture_output=True,
                        text=True, timeout=timeout)
     if r.returncode != 0:
         raise AssertionError(f"{what}: the command line exited "
@@ -1260,7 +1306,8 @@ def cli_phases(aln, card: str, single_file: bool = True) -> dict:
     """Phases 7-9: the command line on the card. Returns its numbers.
     Without ``single_file`` (the full call) phase 7's SE run is phase 9's
     --shard-dir run, its file the merge of its shards: the two ran the
-    same reads through the same command."""
+    same reads through the same command; and phase 8's PE run takes the
+    first of phase 5's two timed batches, not both."""
     from tpubwa_torch import cli
     from tpubwa_torch.index.builder import build_index
     from tpubwa_torch.io import fastx
@@ -1316,7 +1363,9 @@ def cli_phases(aln, card: str, single_file: bool = True) -> dict:
 
     # ---- 8. PE from two mate files
     t0 = time.time()
-    pe = [r for b in pe_reads(aln.idx)[1:] for r in b]
+    pe_batches = pe_reads(aln.idx)[1:] if single_file else \
+        pe_reads(aln.idx)[1:2]
+    pe = [r for b in pe_batches for r in b]
     fastx.write_fastq(d / "r_1.fq", pe[0::2])
     fastx.write_fastq(d / "r_2.fq", pe[1::2])
     pe = [r for m in zip(fastx.iter_fastq(d / "r_1.fq"),
@@ -1340,7 +1389,7 @@ def cli_phases(aln, card: str, single_file: bool = True) -> dict:
           f"{res['pe']['line']}; process wall {wall:.1f} s (oracle "
           f"{prep:.1f} s); K1 launches {k1}, K2 launches {k2} [{card}]",
           flush=True)
-    if k1 <= 0 or k2 < 2 * PE_TIMED_BATCHES:
+    if k1 <= 0 or k2 < 2 * len(pe_batches):
         raise AssertionError(f"the CLI PE path launched K1 {k1} and K2 "
                              f"{k2} times: expected K2 twice a batch")
 
@@ -1788,9 +1837,9 @@ MIXED_READS = 1024      # reads of 76-250 bp in phase 13's mixed batch
 CLIP_READS = 64         # chimeric and adapter-clipped reads, each
 SCALE_MBP = 64          # phase 15's genome (chr20 size, BASELINE config 3)
 SCALE_READS = 8192      # phase 15's timed SE reads (2 batches of 4096)
-FULL_CALL_SCALE_READS = 4096   # ... in the full call (cut for time)
+FULL_CALL_SCALE_READS = 2048   # ... in the full call (cut for time)
 SCALE_PE_PAIRS = 1024   # phase 15's PE row: pairs a batch (warm-up, timed)
-FULL_CALL_SCALE_PE_PAIRS = 512   # ... in the full call (cut for time)
+FULL_CALL_SCALE_PE_PAIRS = 256   # ... in the full call (cut for time)
 
 
 def count_k1(fn, log: list, first: list = None):
@@ -2411,6 +2460,8 @@ PROFILE_REPS = 3        # phase 17: profile_phases', time_stages' and
 FULL_CALL_REPS = 1      # ... in the full call (cut for time)
 PARITY_READS = 2048     # phase 17: parity's SE reads (2% / 0.2% errors)
 FULL_CALL_PE_PAIRS = 512   # profile_pe's pairs in the full call (cut)
+FULL_CALL_PARITY_READS = 1024   # parity's reads in the full call (cut)
+FULL_CALL_PROFILE_READS = 2048  # the other tools' reads in the full call
 REHEARSAL_PAIRS = 768   # phase 18: run_1m's pairs at 64 Mbp (cut from 3072)
 REHEARSAL_BATCH = 512   # ... and its --batch-size (256 pairs a batch)
 
@@ -2422,25 +2473,27 @@ def tool_line(name: str, r: dict, card: str):
 
 
 def profile_tools(aln, card: str, reps: int, pe_pairs: int,
-                  round_engine: bool = True) -> dict:
-    """Phase 17's tools on the 4.6 Mbp bench world (profile_pe on batches
-    of pe_pairs pairs; time_extend's round-engine rows only with
-    ``round_engine``); returns K1's first kernel-row inputs and K2's first
-    forward call's."""
+                  round_engine: bool = True,
+                  parity_reads: int = PARITY_READS, n: int = BATCH) -> dict:
+    """Phase 17's tools on the 4.6 Mbp bench world (profile_phases,
+    time_stages, time_extend and profile_finish on n bench reads;
+    profile_pe on batches of pe_pairs pairs; time_extend's round-engine
+    rows only with ``round_engine``; parity on parity_reads reads);
+    returns K1's first kernel-row inputs and K2's first forward call's."""
     from tpubwa_torch.pair import rescue
     from tpubwa_torch.tools import (bench_world, parity, profile_finish,
                                     profile_pe, profile_phases, time_extend,
                                     time_stages)
-    batch = bench_world.reads(aln.idx, BATCH)
+    batch = bench_world.reads(aln.idx, n)
     r = profile_phases.profile_phases(aln, batch, reps=reps)
     profile_phases.report(r)
     tool_line("profile_phases", r, card)
-    r = time_stages.time_stages(aln, BATCH, reps=reps)
+    r = time_stages.time_stages(aln, n, reps=reps)
     time_stages.report(r)
     tool_line("time_stages", r, card)
     k1_args = []
     for engine in (False, True)[:1 + round_engine]:
-        r = time_extend.time_extend(aln, BATCH, engine,
+        r = time_extend.time_extend(aln, n, engine,
                                     reps=reps, record=k1_args)
         time_extend.report(r)
         tool_line(f"time_extend ({r['engine']})", r, card)
@@ -2471,7 +2524,7 @@ def profile_tools(aln, card: str, reps: int, pe_pairs: int,
         raise AssertionError(f"profile_pe: {r['rescue_results_missing']} "
                              f"rescue results missing of "
                              f"{r['n_rescue_tasks']} tasks")
-    r = parity.parity(aln, PARITY_READS)
+    r = parity.parity(aln, parity_reads)
     parity.report(r)
     tool_line("parity", r, card)
     if r["differ"]:
@@ -2481,17 +2534,19 @@ def profile_tools(aln, card: str, reps: int, pe_pairs: int,
 
 
 def profile_phase(aln, card: str, reps: int = PROFILE_REPS,
-                  pe_pairs: int = PE_PAIRS, round_engine: bool = True) \
-        -> dict:
-    """Phase 17: the profiling tools and the parity spot check on the
-    4.6 Mbp bench world, K1's and K2's launches counted from 0;
-    profile_phases, time_stages and time_extend take the best of
-    ``reps``; time_extend's round-engine rows run with ``round_engine``."""
+                  pe_pairs: int = PE_PAIRS, round_engine: bool = True,
+                  parity_reads: int = PARITY_READS, n: int = BATCH) -> dict:
+    """Phase 17: the profiling tools (on n bench reads) and the parity
+    spot check (on parity_reads reads) on the 4.6 Mbp bench world, K1's
+    and K2's launches counted from 0; profile_phases, time_stages and
+    time_extend take the best of ``reps``; time_extend's round-engine rows
+    run with ``round_engine``."""
     from tpubwa_torch.ops import sw_local
     t_phase = time.time()
     sw_local.ksw_local.launches = 0
     out, k1 = count_k1(lambda: profile_tools(aln, card, reps, pe_pairs,
-                                             round_engine), [])
+                                             round_engine, parity_reads, n),
+                       [])
     k2 = sw_local.ksw_local.launches
     no_reference_imported("phase 17's tools")
     print(f"phase 17: K1 launched {k1} times, K2 {k2} times [{card}]",
@@ -2545,14 +2600,16 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "workload",
               "fallback_pct", "phase_s_per_batch", "device_busy_pct",
               "pe_150bp_reads_per_s", "pe_fallback_pct", "setup_s")
 FULL_CALL_BENCH_TIMED = 1   # phase 19's timed SE batches in the full call
+FULL_CALL_BENCH_BATCH = 2048   # ... and their reads (TPUBWA_BENCH_BATCH)
 DRYRUN_DEVICES = 8          # phase 20's mesh (the reference's __main__)
 FULL_CALL_LOAD_PER_DEV = 512   # phase 20's LOAD test in the full call (cut
                                # from the tool's 1024 reads an entry)
 
 
-def bench_phase(card: str, timed: int = None) -> dict:
+def bench_phase(card: str, timed: int = None, batch: int = None) -> dict:
     """Phase 19: `python3 bench_torch.py` in a subprocess, as a user runs
-    it, with TPUBWA_BENCH_TIMED=timed (bench.py's 8 when None). Fails
+    it, with TPUBWA_BENCH_TIMED=timed and TPUBWA_BENCH_BATCH=batch
+    (bench.py's 8 and 4096 when None). Fails
     unless its last line has every key of bench.py's line, both rates are
     above 0 and its card is this card, or if a kernel of its timed runs
     (K1 SE and PE, K2 PE) launched no time."""
@@ -2564,6 +2621,8 @@ def bench_phase(card: str, timed: int = None) -> dict:
     env.pop("TPUBWA_BENCH_TIMED", None)
     if timed is not None:
         env["TPUBWA_BENCH_TIMED"] = str(timed)
+    if batch is not None:
+        env["TPUBWA_BENCH_BATCH"] = str(batch)
     r = subprocess.run([sys.executable, "bench_torch.py"], cwd=str(REPO),
                        env=env, capture_output=True, text=True, timeout=900)
     if r.returncode != 0:
@@ -2938,77 +2997,103 @@ def option_batches(idx, se_reads: int, pe_pairs: int):
 
 def option_set_run(idx, name: str, se, pe, card: str) -> dict:
     """Phase 23 (b) at one set: an Aligner at the set's options on the
-    card aligns the SE batch and the PE batch, each with the kernels'
-    counts set to 0 just before and read just after; both SAMs byte-equal
-    to the oracle's under the same options, no rescue result missing, K1
-    launched on both paths and K2 on the PE path. Returns the numbers,
-    the first K1 call's and first forward K2 call's inputs and the
-    aligner."""
-    import torch
-    from tpubwa_torch.extend import worker
-    from tpubwa_torch.ops import sw, sw_local
-    from tpubwa_torch.pair import rescue
+    card aligns the SE batch and the PE batch (held_run). Returns the
+    numbers, the first K1 call's and first forward K2 call's inputs and
+    the aligner."""
     from tpubwa_torch.pipeline import Aligner
     from tpubwa_torch.tools import bench_world, option_sets
     opt, scoring = set_options(name)
     t0 = time.time()
     aln = Aligner(idx, opt, device=DEVICE, lut_cache=bench_world.lut_path())
     setup = time.time() - t0
-    k1_first, k2_first, log = [], [], []
-    real_k1, real_k2 = worker.ksw_extend, rescue.ksw_local
-
-    def k2_recorder(*args, want_sub, **kw):
-        if want_sub and not k2_first:
-            k2_first.append(tuple(a.clone() for a in args))
-        return real_k2(*args, want_sub=want_sub, **kw)
-    worker.ksw_extend = k1_recorder(real_k1, k1_first, log)
-    rescue.ksw_local = k2_recorder
     out = dict(name=name, flags=" ".join(option_sets.SETS[name]))
-    try:
+    with first_calls() as (k1_first, k2_first):
         for path, batch in (("SE", se), ("PE", pe)):
-            aln.stats = {"reads": 0, "fallback_reads": 0}
-            aln.oracle._lib.tb_rescue_miss_reset()
-            torch.cuda.synchronize()
-            sw.ksw_extend.launches = sw_local.ksw_local.launches = 0
-            t1 = time.perf_counter()
-            sam = (aln.align_se if path == "SE" else aln.align_pe)(batch,
-                                                                  id0=0)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t1
-            k1, k2 = sw.ksw_extend.launches, sw_local.ksw_local.launches
-            misses = aln.oracle._lib.tb_rescue_miss_count()
-            st = dict(aln.stats)
-            want = aln.oracle.align_se(batch, opt, id0=0) if path == "SE" \
-                else aln.oracle.align_pe(batch, opt, id0=0)[0]
-            first_diff(sam, want, f"phase 23 {name} {path} SAM against the "
-                       "oracle at the same options")
-            out[path] = dict(
-                reads=batch.n, s=dt, reads_per_s=batch.n / dt,
-                fallback=st["fallback_reads"] / max(st["reads"], 1),
-                tier1_ovf=st.get("tier1_ovf", 0),
-                tier2_rows=st.get("tier2_rows", 0),
-                tier3_rows=st.get("tier3_rows", 0),
-                rescue_tasks=st.get("rescue_tasks", 0), misses=misses,
-                k1=k1, k2=k2)
-            print(f"options {name} ({out['flags']}) {path}: {batch.n} reads "
-                  f"SAM byte-equal to the oracle in {dt:.3f} s "
-                  f"({batch.n / dt:.1f} reads/s); fallback share "
-                  f"{out[path]['fallback']:.5f}; tier1 overflow "
-                  f"{out[path]['tier1_ovf']}; tier2 rows "
-                  f"{out[path]['tier2_rows']}, tier3 rows "
-                  f"{out[path]['tier3_rows']}; rescue tasks "
-                  f"{out[path]['rescue_tasks']}, results missing {misses}; "
-                  f"K1 launches {k1}, K2 launches {k2} [{card}]", flush=True)
-            if misses:
-                raise AssertionError(f"phase 23 {name}: {misses} rescue "
-                                     "results missing")
-            if k1 <= 0 or (path == "PE" and k2 <= 0):
-                raise AssertionError(f"phase 23 {name} {path} launched K1 "
-                                     f"{k1} and K2 {k2} times")
-    finally:
-        worker.ksw_extend, rescue.ksw_local = real_k1, real_k2
+            out[path] = held_run(aln, path, batch,
+                                 f"options {name} ({out['flags']})", card)
+            out[path].pop("sam")
     out.update(setup=setup, k1_first=k1_first[0], k2_first=k2_first[0],
                scoring=scoring, zdrop=opt.zdrop, aln=aln)
+    return out
+
+
+class first_calls:
+    """A context in which worker.ksw_extend and rescue.ksw_local go
+    through the real wrappers (and are counted) while the first K1
+    call's inputs and the first forward (want_sub) K2 call's inputs are
+    kept: ``with first_calls() as (k1_first, k2_first)``."""
+
+    def __enter__(self):
+        from tpubwa_torch.extend import worker
+        from tpubwa_torch.pair import rescue
+        self.real = worker.ksw_extend, rescue.ksw_local
+        k1_first, k2_first = [], []
+        real_k2 = self.real[1]
+
+        def k2_recorder(*args, want_sub, **kw):
+            if want_sub and not k2_first:
+                k2_first.append(tuple(a.clone() for a in args))
+            return real_k2(*args, want_sub=want_sub, **kw)
+        worker.ksw_extend = k1_recorder(self.real[0], k1_first, [])
+        rescue.ksw_local = k2_recorder
+        return k1_first, k2_first
+
+    def __exit__(self, *exc):
+        from tpubwa_torch.extend import worker
+        from tpubwa_torch.pair import rescue
+        worker.ksw_extend, rescue.ksw_local = self.real
+        return False
+
+
+def held_run(aln, path: str, batch, what: str, card: str,
+             stream: bool = False) -> dict:
+    """One batch on the card, PE when ``path`` starts with "PE" (through
+    align_se_stream / align_pe_stream with ``stream``, else align_se /
+    align_pe), with the kernels' counts set to 0 just before and read
+    just after: the SAM byte-equal to the oracle's under the aligner's
+    options, no rescue result missing, K1 launched on both paths and K2
+    on the PE path. Prints a line; returns the numbers and the SAM."""
+    import torch
+    from tpubwa_torch.ops import sw, sw_local
+    pe = path.startswith("PE")
+    aln.stats = {"reads": 0, "fallback_reads": 0}
+    aln.oracle._lib.tb_rescue_miss_reset()
+    torch.cuda.synchronize()
+    sw.ksw_extend.launches = sw_local.ksw_local.launches = 0
+    t1 = time.perf_counter()
+    if stream:
+        sam = "".join((aln.align_pe_stream if pe else aln.align_se_stream)(
+            [batch], id0=0))
+    else:
+        sam = (aln.align_pe if pe else aln.align_se)(batch, id0=0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    k1, k2 = sw.ksw_extend.launches, sw_local.ksw_local.launches
+    misses = aln.oracle._lib.tb_rescue_miss_count()
+    st = dict(aln.stats)
+    want = aln.oracle.align_pe(batch, aln.opt, id0=0)[0] if pe \
+        else aln.oracle.align_se(batch, aln.opt, id0=0)
+    first_diff(sam, want, f"{what} {path} SAM against the oracle at the "
+               "same options")
+    out = dict(reads=batch.n, s=dt, reads_per_s=batch.n / dt,
+               fallback=st["fallback_reads"] / max(st["reads"], 1),
+               tier1_ovf=st.get("tier1_ovf", 0),
+               tier2_rows=st.get("tier2_rows", 0),
+               tier3_rows=st.get("tier3_rows", 0),
+               rescue_tasks=st.get("rescue_tasks", 0), misses=misses,
+               k1=k1, k2=k2, sam=sam)
+    print(f"{what} {path}: {batch.n} reads SAM byte-equal to the oracle in "
+          f"{dt:.3f} s ({batch.n / dt:.1f} reads/s); fallback share "
+          f"{out['fallback']:.5f}; tier1 overflow {out['tier1_ovf']}; tier2 "
+          f"rows {out['tier2_rows']}, tier3 rows {out['tier3_rows']}; rescue "
+          f"tasks {out['rescue_tasks']}, results missing {misses}; K1 "
+          f"launches {k1}, K2 launches {k2} [{card}]", flush=True)
+    if misses:
+        raise AssertionError(f"{what} {path}: {misses} rescue results "
+                             "missing")
+    if k1 <= 0 or (pe and k2 <= 0):
+        raise AssertionError(f"{what} {path} launched K1 {k1} and K2 {k2} "
+                             "times")
     return out
 
 
@@ -3103,6 +3188,247 @@ def option_entries(opts: dict, names, card: str) -> list:
                             f"pass, at {name} (phase 23)", r["k2_first"],
                             r["PE"]["k2"], card, r["scoring"]))
     return out
+
+
+CONTIG_SE_READS = 4096      # phase 24's bench reads a layout (contigs call)
+CONTIG_PE_PAIRS = 2048      # ... and bench pairs
+FULL_CALL_CONTIG_SE_READS = 1024                # ... in the full call
+FULL_CALL_CONTIG_PE_PAIRS = 512
+# phase 24's edge batches: every n-th boundary straddled (SE, 30, 50 and
+# 70 bp over it, both strands) and paired across (PE); contigs with reads
+# flush with their start and end; chimeric 130 + 120 bp reads; pairs on
+# two contigs; heavy-error pairs at contig ends; plain pairs beside them
+CONTIG_EDGES = dict(every=8, flush=64, chimeras=256, split=128, rescue=64,
+                    plain=256)
+FULL_CALL_CONTIG_EDGES = dict(every=32, flush=16, chimeras=64, split=32,
+                              rescue=16, plain=256)
+CONTIG_FIELD = 2048         # first contig id the packed row's field lacks
+CONTIG_CLI_LEN = 200_000    # the contigs call's FASTA: the bench text's head
+
+
+def edge_batches(idx, e: dict):
+    """Phase 24's edge batches on a layout's index: SE (100 bp
+    straddlers, flush reads, 250 bp chimeras: a mixed-length batch) and
+    PE (150 bp; plain pairs, inserts 400 +- 50, seed 17; pairs across
+    boundaries; pairs on two contigs; pairs whose second mate has an
+    error every 7 bases, their fragment ending 20 bp before a contig's
+    end)."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import contig_layouts as cl
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    a = idx.anns
+    se = (cl.straddlers(fwd, a, e["every"]) + cl.flush_reads(fwd, a,
+                                                            e["flush"])
+          + cl.chimeras(fwd, a, e["chimeras"], seed=13))
+    pe = (fastx.simulate_reads(fwd, e["plain"], read_len=PE_READ_LEN,
+                               error_rate=0.01, indel_rate=0.001, seed=17,
+                               paired=True, insert_mean=400, insert_std=50)
+          + cl.boundary_pairs(fwd, a, e["every"], 400, PE_READ_LEN)
+          + cl.split_pairs(fwd, a, e["split"], seed=19,
+                           read_len=PE_READ_LEN)
+          + cl.end_rescue_pairs(fwd, a, e["rescue"], seed=23, insert=400,
+                                read_len=PE_READ_LEN))
+    return fastx.batch_reads(se), fastx.batch_reads(pe, max_len=PE_READ_LEN)
+
+
+def contig_counts(sam: str, names) -> dict:
+    """Of ``sam``'s records: primaries placed on contig CONTIG_FIELD or
+    later, records whose SA:Z names another contig, records whose RNEXT
+    is another contig."""
+    late = set(names[CONTIG_FIELD:])
+    n = dict(late=0, sa_other=0, rnext_other=0)
+    for line in sam.splitlines():
+        f = line.split("\t")
+        flag, rname = int(f[1]), f[2]
+        n["late"] += not flag & 0x904 and rname in late
+        sa = line.split("\tSA:Z:")
+        n["sa_other"] += len(sa) > 1 and sa[1].split(",")[0] != rname
+        n["rnext_other"] += f[6] not in ("=", "*")
+    return n
+
+
+def contig_layout_run(idx, name: str, se, pe, edges: dict, card: str,
+                      split: bool = False) -> dict:
+    """Phase 24 at one layout: the bench index re-annotated with layout
+    ``name`` and its LUT cache (the same text, so the same table) under
+    an Aligner on the card; its header's @SQ lines in layout order; the
+    bench SE batch through align_se_stream, the edge SE batch through
+    align_se, the bench PE batch through align_pe_stream and the edge PE
+    batch through align_pe (held_run: byte-equal to the oracle at the
+    layout, no rescue result missing); with ``split``, the bench SE batch
+    stage by stage. Returns the runs, the first K1 and forward K2 calls'
+    inputs and the stage split."""
+    from tpubwa_torch.pipeline import Aligner
+    from tpubwa_torch.tools import bench_world, contig_layouts
+    t0 = time.time()
+    lidx = contig_layouts.reannotate(idx, name)
+    aln = Aligner(lidx, device=DEVICE, lut_cache=bench_world.lut_path())
+    names = [a.name for a in lidx.anns]
+    sq = [l.split("\t")[1][3:] for l in aln.sam_header().splitlines()
+          if l.startswith("@SQ")]
+    if sq != names or len(sq) != contig_layouts.COUNTS[name]:
+        raise AssertionError(f"phase 24 {name}: {len(sq)} @SQ lines, not "
+                             f"the layout's {contig_layouts.COUNTS[name]} "
+                             "in order")
+    se_x, pe_x = edge_batches(lidx, edges)
+    setup = time.time() - t0
+    runs = {}
+    with first_calls() as (k1_first, k2_first):
+        for path, batch, stream in (("SE bench", se, True),
+                                    ("SE edge", se_x, False),
+                                    ("PE bench", pe, True),
+                                    ("PE edge", pe_x, False)):
+            r = runs[path] = held_run(aln, path, batch, f"contigs {name}",
+                                      card, stream)
+            r.update(contig_counts(r.pop("sam"), names))
+            print(f"contigs {name} {path}: {r['late']} primary records on "
+                  f"contig {CONTIG_FIELD} or later, {r['sa_other']} SA:Z "
+                  f"naming another contig, {r['rnext_other']} with RNEXT "
+                  f"another contig [{card}]", flush=True)
+    split_s = stages(aln, se, 0, card, f"contigs {name} stage") \
+        if split else None
+    print(f"contigs {name}: {len(sq)} @SQ lines in layout order; set-up "
+          f"{setup:.1f} s (edge batches of {se_x.n} SE reads and "
+          f"{pe_x.n // 2} pairs); layout took {time.time() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return dict(runs=runs, k1_first=k1_first[0], k2_first=k2_first[0],
+                split=split_s, k1=sum(r["k1"] for r in runs.values()),
+                k2=sum(r["k2"] for r in runs.values()))
+
+
+def contig_cli(idx, card: str) -> dict:
+    """Phase 24's command line (contigs call only): the bench text's first
+    CONTIG_CLI_LEN bases as a grch38-layout FASTA with N runs at the start
+    of every 10th contig and the end of every 15th; `index` on it, then
+    `align` SE and two-file PE, `align --shard-dir` + `merge --sort`, and
+    `sort`, each file byte-equal to the header + the oracle's text on
+    that index; the sorted files place chr2 before chr10."""
+    import types
+
+    import numpy as np
+    from tpubwa_torch.index.builder import FMIndex
+    from tpubwa_torch.io import fastx, sam
+    from tpubwa_torch.opts import MemOptions
+    from tpubwa_torch.oracle import Oracle
+    from tpubwa_torch.pipeline import Aligner
+    from tpubwa_torch.tools import contig_layouts as cl
+    t0 = time.time()
+    d = smoke_dir() / "contigs"
+    d.mkdir(exist_ok=True)
+    lay = cl.layout(CONTIG_CLI_LEN, "grch38")
+    (d / "g.fa").write_text(cl.fasta_text(cl.gapped_records(
+        idx.get_seq(0, CONTIG_CLI_LEN).astype(np.uint8), lay, seed=29)))
+    lut = d / "g.lut.npz"
+    run_cli(["index", str(d / "g.fa"), "-o", str(d / "g.npz")],
+            "CLI index of the contigs FASTA", lut=lut)
+    cidx = FMIndex.load(d / "g.npz")
+    if [(a.name, a.offset, a.length) for a in cidx.anns] != lay or \
+            len(cidx.ambs) != len(lay[::10]) + len(lay[::15]):
+        raise AssertionError("the contigs index's annotations or N runs "
+                             "are not the FASTA's")
+    fwd = cidx.get_seq(0, cidx.l_pac).astype(np.uint8)
+    se = fastx.simulate_reads(fwd, 1024, read_len=READ_LEN, error_rate=0.01,
+                              indel_rate=0.001, seed=31) + \
+        cl.straddlers(fwd, lay, every=4)
+    pe = fastx.simulate_reads(fwd, 512, read_len=PE_READ_LEN,
+                              error_rate=0.01, indel_rate=0.001, seed=37,
+                              paired=True, insert_mean=400, insert_std=50) + \
+        cl.split_pairs(fwd, lay, 32, seed=41, read_len=PE_READ_LEN)
+    fastx.write_fastq(d / "se.fq", se)
+    fastx.write_fastq(d / "c_1.fq", pe[0::2])
+    fastx.write_fastq(d / "c_2.fq", pe[1::2])
+    se = list(fastx.iter_fastq(d / "se.fq"))
+    pe = [r for m in zip(fastx.iter_fastq(d / "c_1.fq"),
+                         fastx.iter_fastq(d / "c_2.fq")) for r in m]
+    orc, opt = Oracle(cidx), MemOptions()
+    header = Aligner.sam_header(types.SimpleNamespace(idx=cidx, rg_id=""))
+    want_se = header + orc.align_se(fastx.batch_reads(se), opt, id0=0)
+    want_pe = header + orc.align_pe(fastx.batch_reads(pe), opt, id0=0)[0]
+    npz, out = str(d / "g.npz"), {}
+    for what, args, want in (
+            ("SE", [str(d / "se.fq"), "--batch-size", str(len(se))],
+             want_se),
+            ("PE", [str(d / "c_1.fq"), str(d / "c_2.fq"), "--batch-size",
+                    str(len(pe))], want_pe)):
+        f = d / f"{what}.sam"
+        err = run_cli(["align", npz, *args, "-o", str(f), "--platform",
+                       DEVICE], f"CLI {what} on the contigs index", lut=lut)
+        first_diff(f.read_text(), want, f"contigs CLI {what} against the "
+                   "header + the oracle")
+        out[what] = cli_launches(err)
+    shard = 256
+    run_cli(["align", npz, str(d / "se.fq"), "--platform", DEVICE,
+             "--batch-size", str(shard), "--shard-dir", str(d / "shards")],
+            "CLI --shard-dir on the contigs index", lut=lut)
+    body = "".join(orc.align_se(fastx.batch_reads(se[i:i + shard]), opt,
+                                id0=i) for i in range(0, len(se), shard))
+    shards = sorted((d / "shards").glob("shard_*.sam"))
+    run_cli(["merge", str(d / "shards" / "header.sam"), *map(str, shards),
+             "-o", str(d / "merged.sam"), "--sort"], "CLI merge --sort")
+    first_diff((d / "merged.sam").read_text(),
+               sam.coordinate_sort(header + body), "contigs CLI merge "
+               "--sort against the sorted header + oracle")
+    run_cli(["sort", str(d / "SE.sam"), "-o", str(d / "sorted.sam")],
+            "CLI sort")
+    srt = (d / "sorted.sam").read_text()
+    first_diff(srt, sam.coordinate_sort(want_se), "contigs CLI sort "
+               "against the sorted header + oracle")
+    rn = [l.split("\t")[2] for l in srt.splitlines() if l[0] != "@"]
+    if not ("chr2" in rn and "chr10" in rn and
+            max(i for i, r in enumerate(rn) if r == "chr2") <
+            min(i for i, r in enumerate(rn) if r == "chr10")):
+        raise AssertionError("the sorted file does not place chr2 before "
+                             "chr10")
+    print(f"contigs CLI: index of {len(lay)} records ({len(cidx.ambs)} N "
+          f"runs), SE ({len(se)} reads) and two-file PE ({len(pe) // 2} "
+          f"pairs) files, {len(shards)} shards merged with --sort and the "
+          f"sorted SE file byte-equal to the header + the oracle; chr2 "
+          f"before chr10; K1/K2 launches SE {out['SE']}, PE {out['PE']}; "
+          f"{time.time() - t0:.1f} s [{card}]", flush=True)
+    if min(out["SE"][0], *out["PE"]) <= 0:
+        raise AssertionError(f"the contigs CLI launched K1/K2 {out}")
+    return out
+
+
+def contigs_phase(card: str, se_reads: int, pe_pairs: int, edges: dict,
+                  idx=None, full: bool = False) -> dict:
+    """Phase 24: references of many contigs. At the grch38 and hs38dh
+    layouts (tpubwa_torch/tools/contig_layouts.py) over the bench index:
+    se_reads bench reads, pe_pairs bench pairs and the edge batches
+    (contig_layout_run); K1's first call and K2's first forward call at
+    hs38dh kept for phase 6; the tiers stage of the bench SE batch at
+    hs38dh against grch38; with ``full`` the stage split and the
+    command line (contig_cli)."""
+    from tpubwa_torch.tools import bench_world, contig_layouts
+    t0 = time.time()
+    if idx is None:
+        idx = bench_world.get_index()
+    se, pe, _ = option_batches(idx, se_reads, pe_pairs)
+    runs = {name: contig_layout_run(idx, name, se, pe, edges, card, full)
+            for name in contig_layouts.NAMES}
+    if full:
+        t = {n: runs[n]["split"]["tiers"] for n in runs}
+        print(f"contigs: tiers stage of the bench SE batch ({se.n} reads) "
+              f"{t['hs38dh'] * 1e3:.1f} ms at hs38dh against "
+              f"{t['grch38'] * 1e3:.1f} ms at grch38, difference "
+              f"{(t['hs38dh'] - t['grch38']) * 1e3:.1f} ms [{card}]",
+              flush=True)
+        contig_cli(idx, card)
+    print(f"phase 24 took {time.time() - t0:.1f} s [{card}]", flush=True)
+    return runs
+
+
+def contig_entries(runs: dict, card: str) -> list:
+    """Phase 6 for phase 24: K1 on the first call and K2 on the first
+    forward call of the hs38dh batches, held to their plain versions and
+    timed beside their bounds; launches are the hs38dh batches'."""
+    r = runs["hs38dh"]
+    return [k1_entry("ksw_extend_contigs", "SE + PE at the hs38dh layout, "
+                     "3366 contigs (phase 24)", r["k1_first"], r["k1"], card),
+            k2_entry("ksw_local_contigs", "PE rescue, forward pass, at the "
+                     "hs38dh layout (phase 24)", r["k2_first"], r["k2"],
+                     card)]
 
 
 def k1_entry(name: str, path: str, args, n_l: int, card: str,
@@ -3229,7 +3555,8 @@ def main() -> int:
     # the full call and pe_window build the bench world's caches beside
     # phases 1-2
     bprep = start_bench_prepare() \
-        if sys.argv[1:] in ([], ["pe_window"], ["options"]) else None
+        if sys.argv[1:] in ([], ["pe_window"], ["options"], ["contigs"]) \
+        else None
     atexit.register(stop, bprep)
     timed_phase("1 (build)", build)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3304,6 +3631,18 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phase 23 only"}))
         return 0
+    if sys.argv[1:] == ["contigs"]:
+        wait_prepare(bprep, "bench world prepare", card)
+        ctg = timed_phase("24 (contigs)", contigs_phase, card,
+                          CONTIG_SE_READS, CONTIG_PE_PAIRS, CONTIG_EDGES,
+                          None, True)
+        print(json.dumps({"kernels": [kernel_entry(*e[:5], 0, e[5])
+                                      for e in contig_entries(ctg, card)]}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phase 24 only"}))
+        return 0
     if sys.argv[1:] == ["pe_window"]:
         wait_prepare(bprep, "bench world prepare", card)
         timed_phase("22 (PE window)", pe_window_phase, card)
@@ -3355,6 +3694,10 @@ def main() -> int:
     opts = timed_phase("23 (options)", options_phase, card, NAMES,
                        FULL_CALL_OPTION_SETS, FULL_CALL_OPTION_SE_READS,
                        FULL_CALL_OPTION_PE_PAIRS, aln.idx, True)
+    # phase 24, also before the 64 Mbp build process starts
+    ctg = timed_phase("24 (contigs)", contigs_phase, card,
+                      FULL_CALL_CONTIG_SE_READS, FULL_CALL_CONTIG_PE_PAIRS,
+                      FULL_CALL_CONTIG_EDGES, aln.idx)
     # the 64 Mbp caches (and phase 20's 2 Mbp ones) build on the host
     # while phases 7-14 run
     prep = start_scale_prepare()
@@ -3381,10 +3724,11 @@ def main() -> int:
                        scale["g"], card, FULL_CALL_VARIANTS,
                        FULL_CALL_SCALE_VARIANTS, FULL_CALL_TUNE_REPS, False)
     prof = timed_phase("17 (profile)", profile_phase, aln, card,
-                       FULL_CALL_REPS, FULL_CALL_PE_PAIRS, False)
+                       FULL_CALL_REPS, FULL_CALL_PE_PAIRS, False,
+                       FULL_CALL_PARITY_READS, FULL_CALL_PROFILE_READS)
     timed_phase("18 (rehearsal)", rehearsal_phase, scale["aln"], card)
     bench = timed_phase("19 (bench)", bench_phase, card,
-                        FULL_CALL_BENCH_TIMED)
+                        FULL_CALL_BENCH_TIMED, FULL_CALL_BENCH_BATCH)
     dry = timed_phase("20 (dryrun)", dryrun_phase, card,
                       FULL_CALL_LOAD_PER_DEV)
     t6 = time.time()
@@ -3420,14 +3764,14 @@ def main() -> int:
                                  "main-path inputs")
     new = new_path_entries(longr, i64, scale, card) + \
         [diag_entry(diag, card)] + profile_entries(prof, card) + \
-        [dryrun_entry(dry, card)]
+        [dryrun_entry(dry, card)] + contig_entries(ctg, card)
     opt_kernels = option_kernels(opts, FULL_CALL_OPTION_SETS, card)
     print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
     # one entry per kernel and path: K1 on the SE and the PE path (other
     # shapes, its own launch count), K2's two template instances, then
     # the later slices' paths: K1 on the long, int64 and 64 Mbp paths, K2
     # on the 64 Mbp PE row, K1 in phase 16, K1 and K2 in phase 17, K1 in
-    # phase 20
+    # phase 20, K1 and K2 in phase 24 (then phase 23's)
     kernels = [
         kernel_entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches,
                      worst, r1["SE"]),
@@ -3454,7 +3798,8 @@ def main() -> int:
           f"reads/s, fallback {scale['se']['fallback_pct']}% (SE), "
           f"{scale['pe']['pe_fallback_pct']}% (PE); phase 16: "
           f"{json.dumps(diag['scale']['split'])}; bench_torch.py "
-          f"({FULL_CALL_BENCH_TIMED} timed SE batches): SE "
+          f"({FULL_CALL_BENCH_TIMED} timed SE batch of "
+          f"{FULL_CALL_BENCH_BATCH}): SE "
           f"{bench['line']['value']}, PE "
           f"{bench['line']['pe_150bp_reads_per_s']} reads/s; dry run: "
           f"sharding_overhead_eff "
