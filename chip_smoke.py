@@ -96,7 +96,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                replicated one; insert_size_psum equal to np.bincount.
  13. long    — long reads (BASELINE config 5) against the 4.6 Mbp index: 256
                SE reads of 250 bp (seed 43), 1024 reads of 76-250 bp
-               through align_se and align_se_stream, 64 chimeric and 64
+               (256 in the full call) through align_se and
+               align_se_stream, 64 chimeric and 64
                adapter-clipped 250 bp reads; every SAM byte-equal to the
                oracle; fails unless a line has flag 0x800 and SA:Z, a CIGAR
                a soft clip, and K1 ran its K=8 register instance; prints
@@ -154,9 +155,9 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                time_stages and time_extend (both engines' rows; one timed
                rep after the warm-up in the full call, best of 3 in the
                profile call) on 4096 reads, profile_finish on 4096 reads
-               (those four on 2048 reads in the full call),
-               profile_pe on 2048 pairs (512 in the full call), parity
-               on 2048 reads (1024 in the full call; 2% / 0.2% errors,
+               (those four on 1024 reads in the full call),
+               profile_pe on 2048 pairs (256 in the full call), parity
+               on 2048 reads (512 in the full call; 2% / 0.2% errors,
                seed 3);
                each prints its rows and a JSON line with the card; fails
                if a tool imported JAX or the reference package, parity
@@ -271,17 +272,48 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                --sort` and `sort`, each file byte-equal to the header +
                the oracle on that index, chr2 sorted before chr10. In the
                full call, after phase 23 (before the 64 Mbp build
-               process starts): 1024 bench reads and 512 pairs at both
-               layouts, edge batches at every 32nd boundary (16 flush
-               contigs, 64 chimeras, 32 pairs on two contigs, 16
-               heavy-error pairs), no stage split and no command line.
-Phases 7-20, 23 and 24 run between phases 5 and 6, each from counts of its
+               process starts): 512 bench reads and 256 pairs at both
+               layouts, edge batches at every 64th boundary (8 flush
+               contigs, 32 chimeras, 16 pairs on two contigs, 8
+               heavy-error pairs, 128 plain pairs), no stage split and no
+               command line.
+ 25. long PE — paired-end reads of 2x250 and 2x300 bp on the bench world
+               through Aligner(idx, device="cuda"), where K1 (Q > 288) and
+               K2 (Q > 256) take their generic shared-memory instances:
+               (a) 2048 pairs of 2x250 (inserts 550 +- 50, seed 51), (b)
+               2048 pairs of 2x300 (650 +- 60, seed 52), (c) 256 each of
+               tpubwa_torch/tools/long_pairs.py's overlapping, read-
+               through (TruSeq adapter), trimmed (36-300 bp an end) and
+               rescue pairs at 300 bp in one batch, (d) 1024 broad-insert
+               pairs (650 +- 250) and 64 rescue pairs, whose rescue
+               window makes T >= 2048 (the generic K2 instance above 48 KB
+               of shared memory a block), (e) 4096 SE reads of 300 bp
+               through align_se, each batch with kernel counts set to 0
+               just before and read just after, SAM byte-equal to the
+               oracle, no rescue result missing; per batch reads/s,
+               fallback share, tier-1 overflow, tier-2/3 rows, rescue
+               tasks, the rescue calls' Q and T, K1 launches by instance
+               and K2's by instance and pass; (f) align_pe_stream over
+               (a), (b) and 512 more pairs of 2x250, each batch
+               byte-equal to align_pe and the oracle; (g) `python -m
+               tpubwa_torch align idx r_1.fq r_2.fq --platform cuda` on
+               512 pairs of (b), the file byte-equal to the header +
+               Oracle.align_pe. Fails unless K1's generic instance
+               launched on (b), (c) and (e), K2's forward and reverse on
+               (b), K2's generic instance at T >= 2048 above 48 KB on (d),
+               and at 2x250 K1's and K2's K=8 register instances. In the
+               full call, after phase 24: (b) and (d) at 256 pairs (16
+               rescue pairs), the same checks on what ran.
+Phases 7-20 and 23-25 run between phases 5 and 6, each from counts of its
 own; phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and
 20 and on phase 17's time_extend kernel row, K2 on the first forward call
 of phase 15 and of phase 17's profile_pe, K1 on the first call and K2 on
 the first forward call of phase 24's hs38dh batches, and K1 on the first
 call and K2 on the first forward call of phase 23 (b) at scaled2 and at
-pacbio (at the set's scores), to their plain versions (14 more entries).
+pacbio (at the set's scores), and K1 on the first 2x300 call, K2 on the
+first 2x300 forward and reverse calls and on the first forward call at
+T >= 2048 of phase 25 (generic instances), to their plain versions (18
+more entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
 Every phase prints its seconds, and the call its whole seconds. In the
@@ -304,7 +336,10 @@ pe_window the build and phase 22; python3 chip_smoke.py options the build
 and phase 23 at all five sets at full batch, with the kernels line of its
 ten entries, K1 and K2 at each set; python3 chip_smoke.py contigs the
 build and phase 24 at full depth with its stage split and command line,
-with the kernels line of its two entries.)
+with the kernels line of its two entries; python3 chip_smoke.py long_pe
+the build and phase 25 at full depth, (a)-(g), with the kernels line of
+its six entries: K1 at 2x250 (K=8) and 2x300 (generic), K2 forward and
+reverse at 2x300, forward at T >= 2048, forward at 2x250 (K=8).)
 """
 import atexit
 import json
@@ -1834,6 +1869,7 @@ def dist_phase(aln, card: str) -> dict:
 LONG_READ_LEN = 250
 LONG_READS = 256        # SE 250 bp reads of phase 13 (seed 43)
 MIXED_READS = 1024      # reads of 76-250 bp in phase 13's mixed batch
+FULL_CALL_MIXED_READS = 256   # ... in the full call (cut for phase 25)
 CLIP_READS = 64         # chimeric and adapter-clipped reads, each
 SCALE_MBP = 64          # phase 15's genome (chr20 size, BASELINE config 3)
 SCALE_READS = 8192      # phase 15's timed SE reads (2 batches of 4096)
@@ -1882,10 +1918,10 @@ def long_records(fwd, n: int, seed: int) -> list:
     return recs
 
 
-def long_phase(aln, card: str) -> dict:
+def long_phase(aln, card: str, mixed_reads: int = MIXED_READS) -> dict:
     """Phase 13: long reads on the card (BASELINE config 5). 256 SE reads
-    of 250 bp (seed 43), a mixed batch of 1024 reads of 76-250 bp through
-    align_se and through align_se_stream (two batches of 512), and 64
+    of 250 bp (seed 43), a mixed batch of ``mixed_reads`` reads of 76-250
+    bp through align_se and through align_se_stream (two halves), and 64
     chimeric + 64 adapter-clipped 250 bp reads: every SAM byte-equal to
     the oracle's. Fails unless a line has flag 0x800 and an SA:Z tag, a
     CIGAR has a soft clip, and K1 ran the K=8 register instance."""
@@ -1899,16 +1935,16 @@ def long_phase(aln, card: str) -> dict:
     long = fastx.batch_reads(fastx.simulate_reads(
         fwd, LONG_READS, read_len=LONG_READ_LEN, error_rate=0.01,
         indel_rate=0.001, seed=43), max_len=LONG_READ_LEN)
-    sims = fastx.simulate_reads(fwd, MIXED_READS, read_len=LONG_READ_LEN,
+    sims = fastx.simulate_reads(fwd, mixed_reads, read_len=LONG_READ_LEN,
                                 error_rate=0.01, indel_rate=0.001, seed=44)
     cut = np.random.default_rng(45).integers(76, LONG_READ_LEN + 1,
-                                             MIXED_READS)
+                                             mixed_reads)
     mixed_recs = [fastx.FastxRecord(r.name, r.seq[:L])
                   for r, L in zip(sims, cut)]
     mixed = fastx.batch_reads(mixed_recs, max_len=LONG_READ_LEN)
-    halves = [fastx.batch_reads(mixed_recs[i:i + MIXED_READS // 2],
+    halves = [fastx.batch_reads(mixed_recs[i:i + mixed_reads // 2],
                                 max_len=LONG_READ_LEN)
-              for i in (0, MIXED_READS // 2)]
+              for i in (0, mixed_reads // 2)]
     clip = fastx.batch_reads(long_records(fwd, CLIP_READS, 46),
                              max_len=LONG_READ_LEN)
     # the third cap bucket's packed worker1, wrapped to count its calls
@@ -1960,7 +1996,7 @@ def long_phase(aln, card: str) -> dict:
     k8 = sum(1 for n, q, t in k1_log if sw.kernel_instance(q) == 8)
     print(f"long: {LONG_READS} SE reads of {LONG_READ_LEN} bp "
           f"({out['250 bp'][1]:.2f} s, {LONG_READS / out['250 bp'][1]:.1f} "
-          f"reads/s), {MIXED_READS} reads of 76-{LONG_READ_LEN} bp through "
+          f"reads/s), {mixed_reads} reads of 76-{LONG_READ_LEN} bp through "
           f"align_se ({out['mixed'][1]:.2f} s) and align_se_stream "
           f"({out['mixed streamed'][1]:.2f} s), {2 * CLIP_READS} chimeric "
           f"and adapter-clipped reads ({out['clipped'][1]:.2f} s): every "
@@ -2459,9 +2495,9 @@ PROFILE_REPS = 3        # phase 17: profile_phases', time_stages' and
                         # time_extend's reps
 FULL_CALL_REPS = 1      # ... in the full call (cut for time)
 PARITY_READS = 2048     # phase 17: parity's SE reads (2% / 0.2% errors)
-FULL_CALL_PE_PAIRS = 512   # profile_pe's pairs in the full call (cut)
-FULL_CALL_PARITY_READS = 1024   # parity's reads in the full call (cut)
-FULL_CALL_PROFILE_READS = 2048  # the other tools' reads in the full call
+FULL_CALL_PE_PAIRS = 256   # profile_pe's pairs in the full call (cut)
+FULL_CALL_PARITY_READS = 512   # parity's reads in the full call (cut)
+FULL_CALL_PROFILE_READS = 1024  # the other tools' reads in the full call
 REHEARSAL_PAIRS = 768   # phase 18: run_1m's pairs at 64 Mbp (cut from 3072)
 REHEARSAL_BATCH = 512   # ... and its --batch-size (256 pairs a batch)
 
@@ -3007,42 +3043,108 @@ def option_set_run(idx, name: str, se, pe, card: str) -> dict:
     aln = Aligner(idx, opt, device=DEVICE, lut_cache=bench_world.lut_path())
     setup = time.time() - t0
     out = dict(name=name, flags=" ".join(option_sets.SETS[name]))
-    with first_calls() as (k1_first, k2_first):
+    with kernel_calls() as calls:
         for path, batch in (("SE", se), ("PE", pe)):
             out[path] = held_run(aln, path, batch,
                                  f"options {name} ({out['flags']})", card)
             out[path].pop("sam")
-    out.update(setup=setup, k1_first=k1_first[0], k2_first=k2_first[0],
+    out.update(setup=setup, k1_first=calls.first_call("K1"),
+               k2_first=calls.first_call("K2 fwd"),
                scoring=scoring, zdrop=opt.zdrop, aln=aln)
     return out
 
 
-class first_calls:
+def instance_name(k: int) -> str:
+    return f"K={k}" if k else "generic"
+
+
+class kernel_calls:
     """A context in which worker.ksw_extend and rescue.ksw_local go
-    through the real wrappers (and are counted) while the first K1
-    call's inputs and the first forward (want_sub) K2 call's inputs are
-    kept: ``with first_calls() as (k1_first, k2_first)``."""
+    through the real wrappers (and are counted) while every launch (a
+    call with a task) is logged by kernel and instance: ``counts`` maps
+    ("K1", instance), ("K2 fwd", instance) and ("K2 rev", instance) to
+    launches, ``first`` to that key's first call's inputs and, on the
+    card, ``events`` to a pair of CUDA events around each launch
+    (``kernel_ms``); the rescue calls' (Q, T) go to ``k2_shapes``, and
+    the generic K2 launches whose window T is 2048 or more to ``wide``,
+    the forward ones also to ("K2 fwd wide", 0) in ``counts`` and
+    ``first``."""
 
     def __enter__(self):
+        import torch
         from tpubwa_torch.extend import worker
+        from tpubwa_torch.ops import sw, sw_local
         from tpubwa_torch.pair import rescue
         self.real = worker.ksw_extend, rescue.ksw_local
-        k1_first, k2_first = [], []
-        real_k2 = self.real[1]
+        real1, real2 = self.real
+        self.counts, self.first, self.events = {}, {}, {}
+        self.k2_shapes, self.wide = set(), 0
 
-        def k2_recorder(*args, want_sub, **kw):
-            if want_sub and not k2_first:
-                k2_first.append(tuple(a.clone() for a in args))
-            return real_k2(*args, want_sub=want_sub, **kw)
-        worker.ksw_extend = k1_recorder(self.real[0], k1_first, [])
-        rescue.ksw_local = k2_recorder
-        return k1_first, k2_first
+        def run(key, args, fn):
+            if not args[0].shape[0]:
+                return fn()
+            self.counts[key] = self.counts.get(key, 0) + 1
+            if key not in self.first:
+                self.first[key] = tuple(a.clone() for a in args)
+            if not args[0].is_cuda:
+                return fn()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn()
+            ev[1].record()
+            self.events.setdefault(key, []).append(ev)
+            return out
+
+        def k1(*args, **kw):
+            key = ("K1", sw.kernel_instance(args[0].shape[1]))
+            return run(key, args, lambda: real1(*args, **kw))
+
+        def k2(*args, want_sub, **kw):
+            Q, T = args[0].shape[1], args[2].shape[1]
+            inst = sw_local.kernel_instance(Q)
+            if args[0].shape[0]:
+                self.k2_shapes.add((Q, T))
+                if inst == 0 and T >= 2048:
+                    self.wide += 1
+                    if want_sub:
+                        w = ("K2 fwd wide", 0)
+                        self.counts[w] = self.counts.get(w, 0) + 1
+                        self.first.setdefault(w, tuple(a.clone()
+                                                       for a in args))
+            return run(("K2 fwd" if want_sub else "K2 rev", inst), args,
+                       lambda: real2(*args, want_sub=want_sub, **kw))
+        worker.ksw_extend, rescue.ksw_local = k1, k2
+        return self
 
     def __exit__(self, *exc):
         from tpubwa_torch.extend import worker
         from tpubwa_torch.pair import rescue
         worker.ksw_extend, rescue.ksw_local = self.real
         return False
+
+    def by(self, kernel: str) -> dict:
+        """Launches of ``kernel`` ("K1", "K2 fwd", "K2 rev") by instance
+        name."""
+        return {instance_name(i): n for (k, i), n in sorted(
+            self.counts.items()) if k == kernel}
+
+    def total(self, *kernels) -> int:
+        return sum(n for (k, _), n in self.counts.items() if k in kernels)
+
+    def kernel_ms(self) -> dict:
+        """Device ms of the launches by "kernel instance" name (CUDA
+        events around each launch; empty off the card)."""
+        import torch
+        if self.events:
+            torch.cuda.synchronize()
+        return {f"{k} {instance_name(i)}": sum(a.elapsed_time(b)
+                                               for a, b in evs)
+                for (k, i), evs in sorted(self.events.items())}
+
+    def first_call(self, kernel: str):
+        """The inputs of ``kernel``'s first launch ("K1", "K2 fwd"), of
+        whichever instance."""
+        return next(v for (k, _), v in self.first.items() if k == kernel)
 
 
 def held_run(aln, path: str, batch, what: str, card: str,
@@ -3192,16 +3294,16 @@ def option_entries(opts: dict, names, card: str) -> list:
 
 CONTIG_SE_READS = 4096      # phase 24's bench reads a layout (contigs call)
 CONTIG_PE_PAIRS = 2048      # ... and bench pairs
-FULL_CALL_CONTIG_SE_READS = 1024                # ... in the full call
-FULL_CALL_CONTIG_PE_PAIRS = 512
+FULL_CALL_CONTIG_SE_READS = 512                 # ... in the full call
+FULL_CALL_CONTIG_PE_PAIRS = 256
 # phase 24's edge batches: every n-th boundary straddled (SE, 30, 50 and
 # 70 bp over it, both strands) and paired across (PE); contigs with reads
 # flush with their start and end; chimeric 130 + 120 bp reads; pairs on
 # two contigs; heavy-error pairs at contig ends; plain pairs beside them
 CONTIG_EDGES = dict(every=8, flush=64, chimeras=256, split=128, rescue=64,
                     plain=256)
-FULL_CALL_CONTIG_EDGES = dict(every=32, flush=16, chimeras=64, split=32,
-                              rescue=16, plain=256)
+FULL_CALL_CONTIG_EDGES = dict(every=64, flush=8, chimeras=32, split=16,
+                              rescue=8, plain=128)
 CONTIG_FIELD = 2048         # first contig id the packed row's field lacks
 CONTIG_CLI_LEN = 200_000    # the contigs call's FASTA: the bench text's head
 
@@ -3274,7 +3376,7 @@ def contig_layout_run(idx, name: str, se, pe, edges: dict, card: str,
     se_x, pe_x = edge_batches(lidx, edges)
     setup = time.time() - t0
     runs = {}
-    with first_calls() as (k1_first, k2_first):
+    with kernel_calls() as calls:
         for path, batch, stream in (("SE bench", se, True),
                                     ("SE edge", se_x, False),
                                     ("PE bench", pe, True),
@@ -3292,7 +3394,8 @@ def contig_layout_run(idx, name: str, se, pe, edges: dict, card: str,
           f"{setup:.1f} s (edge batches of {se_x.n} SE reads and "
           f"{pe_x.n // 2} pairs); layout took {time.time() - t0:.1f} s "
           f"[{card}]", flush=True)
-    return dict(runs=runs, k1_first=k1_first[0], k2_first=k2_first[0],
+    return dict(runs=runs, k1_first=calls.first_call("K1"),
+                k2_first=calls.first_call("K2 fwd"),
                 split=split_s, k1=sum(r["k1"] for r in runs.values()),
                 k2=sum(r["k2"] for r in runs.values()))
 
@@ -3431,6 +3534,263 @@ def contig_entries(runs: dict, card: str) -> list:
                      card)]
 
 
+LONG_PE = {250: (550, 50, 51), 300: (650, 60, 52)}   # (a), (b): insert
+#   mean, sd and seed a read length (2x250 HiSeq 2500 Rapid / NovaSeq SP,
+#   2x300 MiSeq v3)
+LONG_PE_PAIRS = 2048        # phase 25's (a) and (b) batches, in pairs
+LONG_PE_EDGE = 256          # (c): overlap, read-through, trimmed and rescue
+#                             pairs of 300 bp, each
+LONG_PE_WIDE = 1024         # (d): broad-insert pairs (650 +- WIDE_SD) ...
+LONG_PE_WIDE_RESCUE = 64    # ... and rescue pairs beside them
+WIDE_SD = 250               # long_pairs.wide_pairs: rescue window > 1792
+LONG_PE_SE_READS = 4096     # (e): SE reads of 300 bp
+LONG_PE_STREAM_PAIRS = 512  # (f): the stream's third batch (2x250)
+LONG_PE_CLI_PAIRS = 512     # (g): the command line's 2x300 pairs
+FULL_CALL_LONG_PE = 256     # the full call: (b) and (d) at 256 pairs ...
+FULL_CALL_LONG_PE_RESCUE = 16   # ... and 16 rescue pairs beside (d)'s
+SMEM_48K = 48 * 1024        # the default limit of dynamic shared memory
+
+
+def long_pe_run(aln, label: str, batch, card: str, path: str = "PE") -> dict:
+    """Phase 25 on one batch: held_run (align_pe, or align_se with
+    ``path`` "SE"; byte-equal to the oracle, no rescue result missing)
+    with every launch logged by instance (kernel_calls), the logged
+    launches equal to the wrappers' counts. Prints the launches by
+    instance and the rescue calls' widths."""
+    from tpubwa_torch.ops import sw_local
+    with kernel_calls() as calls:
+        r = held_run(aln, path, batch, f"long PE {label}", card)
+    r.pop("sam")
+    if (calls.total("K1"), calls.total("K2 fwd", "K2 rev")) != \
+            (r["k1"], r["k2"]):
+        raise AssertionError(f"long PE {label}: the logged launches "
+                             f"{calls.counts} are not the wrappers' K1 "
+                             f"{r['k1']} and K2 {r['k2']}")
+    smem = sorted({sw_local.smem_bytes(q, t, True)
+                   for q, t in calls.k2_shapes})
+    ms = calls.kernel_ms()
+    print(f"long PE {label}: K1 launches by instance {calls.by('K1')}; K2 "
+          f"forward {calls.by('K2 fwd')}, reverse {calls.by('K2 rev')}; "
+          f"rescue calls' (Q, T) {sorted(calls.k2_shapes)}, forward shared "
+          f"memory a block {smem} bytes; {calls.wide} generic K2 launches "
+          f"at T >= 2048; kernel device ms by instance "
+          f"{ {k: round(v, 3) for k, v in ms.items()} }, "
+          f"{sum(ms.values()):.3f} ms in all, "
+          f"{100 * sum(ms.values()) / 1e3 / r['s']:.2f}% of the batch's "
+          f"{r['s']:.3f} s [{card}]", flush=True)
+    r.update(calls=calls, kernel_ms=ms)
+    return r
+
+
+def long_pe_batches(idx, full: bool) -> dict:
+    """Phase 25's batches by letter: (a) 2x250 and (b) 2x300 simulated
+    pairs (1% substitutions, 0.1% indels, LONG_PE's inserts), (c) the
+    300 bp overlap, read-through, trimmed (650 +- 60) and rescue (insert
+    650) pairs of tools/long_pairs.py in one batch, (d) broad-insert
+    pairs (650 +- WIDE_SD) with rescue pairs beside them, (e) 300 bp SE
+    reads; with ``full`` (the full call) only (b) and (d), at
+    FULL_CALL_LONG_PE pairs. Values: (path, ReadBatch, records)."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import long_pairs as lp
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+
+    def sim(L, n, seed=None):
+        mean, sd, s = LONG_PE[L]
+        return fastx.simulate_reads(fwd, n, read_len=L, error_rate=0.01,
+                                    indel_rate=0.001, seed=seed or s,
+                                    paired=True, insert_mean=mean,
+                                    insert_std=sd)
+    n = FULL_CALL_LONG_PE if full else LONG_PE_PAIRS
+    recs = {"b": sim(300, n)}
+    n_wide, n_resc = (FULL_CALL_LONG_PE, FULL_CALL_LONG_PE_RESCUE) if full \
+        else (LONG_PE_WIDE, LONG_PE_WIDE_RESCUE)
+    recs["d"] = (lp.wide_pairs(fwd, n_wide, 300, 53, 650, WIDE_SD)
+                 + lp.rescue_pairs(fwd, n_resc, 300, 54, 650))
+    if not full:
+        e = LONG_PE_EDGE
+        recs["a"] = sim(250, LONG_PE_PAIRS)
+        recs["c"] = (lp.overlap_pairs(fwd, e, 300, 55)
+                     + lp.readthrough_pairs(fwd, e, 300, 56)
+                     + lp.trimmed_pairs(fwd, e, 300, 57, 650, 60)
+                     + lp.rescue_pairs(fwd, e, 300, 58, 650))
+        recs["e"] = fastx.simulate_reads(fwd, LONG_PE_SE_READS, read_len=300,
+                                         error_rate=0.01, indel_rate=0.001,
+                                         seed=59)
+    return {k: ("SE" if k == "e" else "PE",
+                fastx.batch_reads(recs[k], max_len=250 if k == "a" else 300),
+                recs[k]) for k in sorted(recs)}
+
+
+LONG_PE_LABELS = {"a": "(a) 2x250", "b": "(b) 2x300",
+                  "c": "(c) overlap, read-through, trimmed, rescue",
+                  "d": "(d) broad inserts", "e": "(e) SE 300 bp"}
+
+
+def long_pe_checks(runs: dict):
+    """Phase 25's launch checks: K1's generic instance on (b), (c) and
+    (e); K2's generic instance forward and reverse on (b); a generic K2
+    launch at T >= 2048 above 48 KB of shared memory on (d); at 2x250 (a)
+    the K=8 register instances of K1 and of K2 (both passes). Checks what
+    ran: the full call runs (b) and (d) alone."""
+    from tpubwa_torch.ops import sw_local
+    c = {k: r["calls"].counts for k, r in runs.items()}
+    need = [(k, key) for k, key in (
+        ("b", ("K1", 0)), ("c", ("K1", 0)), ("e", ("K1", 0)),
+        ("b", ("K2 fwd", 0)), ("b", ("K2 rev", 0)), ("a", ("K1", 8)),
+        ("a", ("K2 fwd", 8)), ("a", ("K2 rev", 8))) if k in c]
+    bad = [f"{LONG_PE_LABELS[k]} {key[0]} {instance_name(key[1])}"
+           for k, key in need if not c[k].get(key)]
+    d = runs["d"]["calls"]
+    if not d.wide or max(sw_local.smem_bytes(q, t, True)
+                         for q, t in d.k2_shapes) <= SMEM_48K:
+        bad.append(f"{LONG_PE_LABELS['d']} K2 generic at T >= 2048 above "
+                   "48 KB")
+    if bad:
+        raise AssertionError("phase 25 launched no " + "; no ".join(bad))
+
+
+def long_pe_stream(aln, batches: dict, idx, card: str) -> dict:
+    """Phase 25 (f): align_pe_stream over (a), (b) and a third batch of
+    LONG_PE_STREAM_PAIRS 2x250 pairs (seed 60), each numbered from pair
+    0, kernel counts set to 0 just before and read just after: (a)'s and
+    (b)'s SAM byte-equal to their align_pe runs, which the oracle held,
+    the third's to align_pe and to the oracle; no rescue result missing;
+    K1 and K2 launched in the K=8 and the generic instances."""
+    import numpy as np
+    import torch
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.ops import sw, sw_local
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    mean, sd, _ = LONG_PE[250]
+    third = fastx.batch_reads(fastx.simulate_reads(
+        fwd, LONG_PE_STREAM_PAIRS, read_len=250, error_rate=0.01,
+        indel_rate=0.001, seed=60, paired=True, insert_mean=mean,
+        insert_std=sd), max_len=250)
+    order = [batches["a"][1], batches["b"][1], third]
+    wants = [aln.align_pe(b, id0=0) for b in order]
+    lib = aln.oracle._lib
+    first_diff(wants[2], aln.oracle.align_pe(third, aln.opt, id0=0)[0],
+               "phase 25 (f) third batch's align_pe against the oracle")
+    for w, b, what in zip(wants[:2], order[:2], "ab"):
+        first_diff(w, aln.oracle.align_pe(b, aln.opt, id0=0)[0],
+                   f"phase 25 ({what}) align_pe against the oracle")
+    lib.tb_rescue_miss_reset()
+    with kernel_calls() as calls:
+        torch.cuda.synchronize()
+        sw.ksw_extend.launches = sw_local.ksw_local.launches = 0
+        t0 = time.perf_counter()
+        got = list(aln.align_pe_stream([(b, 0) for b in order]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k1, k2 = sw.ksw_extend.launches, sw_local.ksw_local.launches
+    misses = lib.tb_rescue_miss_count()
+    for i, (g, w) in enumerate(zip(got, wants)):
+        first_diff(g, w, f"phase 25 (f) stream batch {i} against align_pe")
+    n = sum(b.n for b in order)
+    print(f"long PE (f) stream 2x250, 2x300, 2x250 ({n} reads): every "
+          f"batch byte-equal to align_pe and the oracle in {dt:.3f} s "
+          f"({n / dt:.1f} reads/s); rescue results missing {misses}; K1 "
+          f"launches {k1} by instance {calls.by('K1')}; K2 {k2}, forward "
+          f"{calls.by('K2 fwd')}, reverse {calls.by('K2 rev')} [{card}]",
+          flush=True)
+    if misses or (calls.total("K1"), calls.total("K2 fwd", "K2 rev")) != \
+            (k1, k2):
+        raise AssertionError(f"phase 25 (f): {misses} rescue results "
+                             f"missing, logged launches {calls.counts}")
+    for key in (("K1", 8), ("K1", 0), ("K2 fwd", 8), ("K2 fwd", 0)):
+        if not calls.counts.get(key):
+            raise AssertionError(f"phase 25 (f) launched no {key[0]} "
+                                 f"{instance_name(key[1])}")
+    return dict(s=dt, reads_per_s=n / dt, k1=k1, k2=k2, misses=misses)
+
+
+def long_pe_cli(aln, recs, card: str) -> dict:
+    """Phase 25 (g): `python -m tpubwa_torch align idx r_1.fq r_2.fq
+    --platform cuda` on the first LONG_PE_CLI_PAIRS pairs of (b): the file
+    byte-equal to the header + Oracle.align_pe, K1 and K2 launched."""
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import bench_world
+    d = smoke_dir()
+    pe = recs[:2 * LONG_PE_CLI_PAIRS]
+    fastx.write_fastq(d / "l_1.fq", pe[0::2])
+    fastx.write_fastq(d / "l_2.fq", pe[1::2])
+    pe = [r for m in zip(fastx.iter_fastq(d / "l_1.fq"),
+                         fastx.iter_fastq(d / "l_2.fq")) for r in m]
+    want = aln.sam_header() + aln.oracle.align_pe(
+        fastx.batch_reads(pe, max_len=300), aln.opt, id0=0)[0]
+    t0 = time.time()
+    err = run_cli(["align", str(bench_world.BUILD /
+                                f"smoke_index_{GENOME_LEN}.npz"),
+                   str(d / "l_1.fq"), str(d / "l_2.fq"), "-o",
+                   str(d / "l_pe.sam"), "--platform", DEVICE,
+                   "--batch-size", str(len(pe))], "CLI PE at 2x300")
+    wall = time.time() - t0
+    first_diff((d / "l_pe.sam").read_text(), want, "CLI PE SAM at 2x300 "
+               "against the header + Oracle.align_pe")
+    k1, k2 = cli_launches(err)
+    print(f"long PE (g) CLI: {len(pe) // 2} pairs of 2x300, whole file "
+          f"byte-equal to the header + Oracle.align_pe; the CLI says: "
+          f"{cli_line(err, 'total')}; process wall {wall:.1f} s; K1 "
+          f"launches {k1}, K2 launches {k2} [{card}]", flush=True)
+    if k1 <= 0 or k2 <= 0:
+        raise AssertionError(f"the CLI at 2x300 launched K1 {k1} and K2 "
+                             f"{k2} times")
+    return dict(wall=wall, k1=k1, k2=k2)
+
+
+def long_pe_phase(card: str, aln=None, full: bool = False) -> dict:
+    """Phase 25: paired-end reads of 2x250 and 2x300 bp on the card (the
+    bench world, Aligner(idx, device="cuda")). (a)-(e) of long_pe_batches
+    through long_pe_run, then long_pe_checks; without ``full`` also (f)
+    the mixed-width stream and (g) the command line. Returns the runs."""
+    t0 = time.time()
+    if aln is None:
+        aln = make_aligner()
+    batches = long_pe_batches(aln.idx, full)
+    runs = {k: long_pe_run(aln, LONG_PE_LABELS[k], b, card, path)
+            for k, (path, b, _) in batches.items()}
+    long_pe_checks(runs)
+    if not full:
+        runs["f"] = long_pe_stream(aln, batches, aln.idx, card)
+        runs["g"] = long_pe_cli(aln, batches["b"][2], card)
+    print(f"phase 25 took {time.time() - t0:.1f} s [{card}]", flush=True)
+    return runs
+
+
+def long_pe_entries(runs: dict, card: str) -> list:
+    """Phase 6 for phase 25: the first calls of K1 at 2x250 (K=8) and at
+    2x300 (generic), K2 forward and reverse at 2x300 (generic), K2
+    forward on (d) at T >= 2048 (generic, above 48 KB) and K2 forward at
+    2x250 (K=8), each held to its plain version and timed beside its
+    bound and the generic instance; those of the batches that ran. The
+    launches are that kernel's pass and instance in its batch."""
+    out = []
+    for k, key, name, path in (
+            ("a", ("K1", 8), "ksw_extend_pe250", "PE 2x250, K=8 (phase 25)"),
+            ("b", ("K1", 0), "ksw_extend_pe300",
+             "PE 2x300, generic instance (phase 25)"),
+            ("b", ("K2 fwd", 0), "ksw_local_pe300", "PE 2x300 rescue, "
+             "forward pass, generic instance (phase 25)"),
+            ("b", ("K2 rev", 0), "ksw_local_pe300_rev", "PE 2x300 rescue, "
+             "reverse pass, generic instance (phase 25)"),
+            ("d", ("K2 fwd wide", 0), "ksw_local_wide", "PE 2x300 broad "
+             "inserts, forward pass, generic instance at T >= 2048 (phase "
+             "25)"),
+            ("a", ("K2 fwd", 8), "ksw_local_pe250", "PE 2x250 rescue, "
+             "forward pass, K=8 (phase 25)")):
+        if k not in runs:
+            continue
+        c = runs[k]["calls"]
+        args, n_l = c.first[key], c.counts[key]
+        if key[0] == "K1":
+            out.append(k1_entry(name, path, args, n_l, card))
+        else:
+            out.append(k2_entry(name, path, args, n_l, card,
+                                want_sub=key[0] != "K2 rev"))
+    return out
+
+
 def k1_entry(name: str, path: str, args, n_l: int, card: str,
              scoring=None, zdrop=100) -> tuple:
     """K1 on a path's first call (``args``), held to its plain version and
@@ -3475,12 +3835,14 @@ def new_path_entries(longr, i64, scale, card: str) -> list:
 
 
 def k2_entry(name: str, path: str, args, n_l: int, card: str,
-             scoring=None) -> tuple:
-    """K2 (forward pass) on a path's first forward call (``args``), held
-    to its plain version and timed beside its bound, at ``scoring``
-    (bwa's defaults unless given); ``n_l`` is the path's launch count."""
-    m = k2_measure(args, True, generic=True, scoring=scoring)
-    print(f"K2 {name} first forward call N={args[0].shape[0]} "
+             scoring=None, want_sub: bool = True) -> tuple:
+    """K2 on a path's first forward call (``args``; the first reverse call
+    without ``want_sub``), held to its plain version and timed beside its
+    bound, at ``scoring`` (bwa's defaults unless given); ``n_l`` is the
+    path's launch count."""
+    m = k2_measure(args, want_sub, generic=True, scoring=scoring)
+    print(f"K2 {name} first {'forward' if want_sub else 'reverse'} call "
+          f"N={args[0].shape[0]} "
           f"Q={args[0].shape[1]} T={args[2].shape[1]}: max_abs_err="
           f"{m['max_abs_err']} (tolerance 0) kernel {m['ms']:.4f} ms, "
           f"generic instance {m['generic_ms']:.4f} ms, plain "
@@ -3555,7 +3917,8 @@ def main() -> int:
     # the full call and pe_window build the bench world's caches beside
     # phases 1-2
     bprep = start_bench_prepare() \
-        if sys.argv[1:] in ([], ["pe_window"], ["options"], ["contigs"]) \
+        if sys.argv[1:] in ([], ["pe_window"], ["options"], ["contigs"],
+                            ["long_pe"]) \
         else None
     atexit.register(stop, bprep)
     timed_phase("1 (build)", build)
@@ -3643,6 +4006,16 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phase 24 only"}))
         return 0
+    if sys.argv[1:] == ["long_pe"]:
+        wait_prepare(bprep, "bench world prepare", card)
+        lpe = timed_phase("25 (long PE)", long_pe_phase, card)
+        print(json.dumps({"kernels": [kernel_entry(*e[:5], 0, e[5])
+                                      for e in long_pe_entries(lpe, card)]}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phase 25 only"}))
+        return 0
     if sys.argv[1:] == ["pe_window"]:
         wait_prepare(bprep, "bench world prepare", card)
         timed_phase("22 (PE window)", pe_window_phase, card)
@@ -3698,6 +4071,8 @@ def main() -> int:
     ctg = timed_phase("24 (contigs)", contigs_phase, card,
                       FULL_CALL_CONTIG_SE_READS, FULL_CALL_CONTIG_PE_PAIRS,
                       FULL_CALL_CONTIG_EDGES, aln.idx)
+    # phase 25's short piece, also before the 64 Mbp build process starts
+    lpe = timed_phase("25 (long PE)", long_pe_phase, card, aln, True)
     # the 64 Mbp caches (and phase 20's 2 Mbp ones) build on the host
     # while phases 7-14 run
     prep = start_scale_prepare()
@@ -3711,7 +4086,8 @@ def main() -> int:
         phase("12 (dist)", dist_phase, aln, card)
         print(f"phases 7-12 (CLI, shards, multihost, anchor, dist) took "
               f"{time.time() - t_new:.1f} s", flush=True)
-        longr = phase("13 (long)", long_phase, aln, card)
+        longr = phase("13 (long)", long_phase, aln, card,
+                      FULL_CALL_MIXED_READS)
         i64 = phase("14 (int64)", int64_phase, aln, card, False)
         scale = timed_phase("15 (scale)", scale_phase, card, prep,
                             FULL_CALL_SCALE_READS, FULL_CALL_SCALE_PE_PAIRS,
@@ -3764,14 +4140,16 @@ def main() -> int:
                                  "main-path inputs")
     new = new_path_entries(longr, i64, scale, card) + \
         [diag_entry(diag, card)] + profile_entries(prof, card) + \
-        [dryrun_entry(dry, card)] + contig_entries(ctg, card)
+        [dryrun_entry(dry, card)] + contig_entries(ctg, card) + \
+        long_pe_entries(lpe, card)
     opt_kernels = option_kernels(opts, FULL_CALL_OPTION_SETS, card)
     print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
     # one entry per kernel and path: K1 on the SE and the PE path (other
     # shapes, its own launch count), K2's two template instances, then
     # the later slices' paths: K1 on the long, int64 and 64 Mbp paths, K2
     # on the 64 Mbp PE row, K1 in phase 16, K1 and K2 in phase 17, K1 in
-    # phase 20, K1 and K2 in phase 24 (then phase 23's)
+    # phase 20, K1 and K2 in phase 24, K1 and K2 (both passes, and at
+    # T >= 2048) at 2x300 in phase 25 (then phase 23's)
     kernels = [
         kernel_entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches,
                      worst, r1["SE"]),
