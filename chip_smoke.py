@@ -112,14 +112,14 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                the genome, index and LUT built (cold) by a --prepare process
                started before phase 7 (phases 7-14 run beside it, and each
                prints whether it still ran at its end), one warm-up and 1
-               timed streamed batch of 2048 SE reads in the full call (2
+               timed streamed batch of 1024 SE reads in the full call (2
                of 4096 in the scale call), every line
                byte-equal to the oracle; tier-1 overflow per batch and
                whether tier 2 fired (if it fired on no batch, a batch
                built from the overflow reads opens its gate); the tier-2
                call's time and, in the scale call, a stage split of that
                batch (tiers, finish, the whole batch); the PE row (1024
-               pairs, 256 in the full call, byte-equal to
+               pairs, 128 in the full call, byte-equal to
                Oracle.align_pe, no rescue result missing).
  16. diag    — the overflow diagnostics (tpubwa_torch/tools/diag_caps.py,
                tune_budgets.py, diag_scale.py, diag_tier2.py,
@@ -155,7 +155,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                time_stages and time_extend (both engines' rows; one timed
                rep after the warm-up in the full call, best of 3 in the
                profile call) on 4096 reads, profile_finish on 4096 reads
-               (those four on 1024 reads in the full call),
+               (those four on 512 reads in the full call),
                profile_pe on 2048 pairs (256 in the full call), parity
                on 2048 reads (512 in the full call; 2% / 0.2% errors,
                seed 3);
@@ -304,7 +304,32 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                and at 2x250 K1's and K2's K=8 register instances. In the
                full call, after phase 24: (b) and (d) at 256 pairs (16
                rescue pairs), the same checks on what ran.
-Phases 7-20 and 23-25 run between phases 5 and 6, each from counts of its
+ 26. long SE — long single-end reads (tpubwa_torch/tools/long_reads.py,
+               5% chimeras) on the bench world through align_se, where K1
+               runs its generic ring instance at widths of 4096-32768: (a)
+               512 reads of 4096 bp, hifi profile, bwa's defaults; (b)
+               512 reads of 1-12 kbp (log-normal, median 6 kbp), clr
+               profile, the pacbio flags, padded one 64-lane bucket past
+               its longest read (so split into length buckets); (c) the
+               same lengths, ont profile, the ont2d flags, padded to its
+               longest read (one full-width call); (d) 256 reads of
+               12288 bp, hifi;
+               (e) 4 reads of 32768 bp (the packed row's widest query
+               begin), hifi; each batch with the kernel count set to 0
+               just before and read just after, SAM byte-equal to the
+               oracle at the batch's options; per batch reads/s, bases/s,
+               fallback share, tier-1 overflow by field (the caps,
+               seedcov or seedlen0 above 0x3FF, qe - qb or re - rb above
+               0xFFFF), tier-2/3 rows, length buckets, K1's launches and
+               device ms by width; then align_se_stream of (a) and (b) at
+               bwa's defaults, each byte-equal to (a)'s align_se run and
+               to the oracle, and `python -m tpubwa_torch align idx r.fq
+               --platform cuda` with the pacbio flags on 128 reads of (b),
+               the header's @SQ lines the index's and the file byte-equal
+               to the header + Oracle.align_se. Fails unless K1 ran at
+               Q = 4096, 8192, 12288 and 32768. In the full call, after
+               phase 25: (a) at 64 reads, K1 at Q = 4096.
+Phases 7-20 and 23-26 run between phases 5 and 6, each from counts of its
 own; phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and
 20 and on phase 17's time_extend kernel row, K2 on the first forward call
 of phase 15 and of phase 17's profile_pe, K1 on the first call and K2 on
@@ -312,8 +337,8 @@ the first forward call of phase 24's hs38dh batches, and K1 on the first
 call and K2 on the first forward call of phase 23 (b) at scaled2 and at
 pacbio (at the set's scores), and K1 on the first 2x300 call, K2 on the
 first 2x300 forward and reverse calls and on the first forward call at
-T >= 2048 of phase 25 (generic instances), to their plain versions (18
-more entries).
+T >= 2048 of phase 25 (generic instances), and K1 on the first call at
+Q = 4096 of phase 26, to their plain versions (19 more entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
 Every phase prints its seconds, and the call its whole seconds. In the
@@ -339,7 +364,11 @@ build and phase 24 at full depth with its stage split and command line,
 with the kernels line of its two entries; python3 chip_smoke.py long_pe
 the build and phase 25 at full depth, (a)-(g), with the kernels line of
 its six entries: K1 at 2x250 (K=8) and 2x300 (generic), K2 forward and
-reverse at 2x300, forward at T >= 2048, forward at 2x250 (K=8).)
+reverse at 2x300, forward at T >= 2048, forward at 2x250 (K=8);
+python3 chip_smoke.py long_se the build and phase 26 at full depth,
+(a)-(e), the stream and the command line, with the kernels line of its
+four entries: K1 on its first call at Q = 4096, 8192 and 12288, and at
+Q = 32768 on 8 full-width tasks, since (e)'s calls extend no live task.)
 """
 import atexit
 import json
@@ -516,7 +545,10 @@ def k1_measure(args, zdrop=100, kernel_reps=20, generic=False,
     from tpubwa_torch.ops.sw import ksw_extend, ksw_extend_ref, launch_kernel
     q, ql, t, tl, h0, w, eb, valid = args
     kw = dict(scoring or SCORING, zdrop=zdrop)
-    got = ksw_extend(*args, **kw)
+    # the generic instance's ring is sized for the band, as the worker
+    # passes it (no host sync a launch in the timed loops)
+    kk = dict(kw, w_max=int(w.max()) if w.numel() else 0)
+    got = ksw_extend(*args, **kk)
     stats, ref = {}, []
     plain_ms = time_ms(lambda: ref.append(
         ksw_extend_ref(*args, **kw, stats=stats)), 0)
@@ -524,12 +556,12 @@ def k1_measure(args, zdrop=100, kernel_reps=20, generic=False,
     err = max_abs_diff(got, want)
     extra = {}
     if generic:
-        err = max(err, max_abs_diff(launch_kernel(args, 0, **kw), want))
-        g1 = time_ms(lambda: launch_kernel(args, 0, **kw), kernel_reps)
-    ms = time_ms(lambda: ksw_extend(*args, **kw), kernel_reps)
+        err = max(err, max_abs_diff(launch_kernel(args, 0, **kk), want))
+        g1 = time_ms(lambda: launch_kernel(args, 0, **kk), kernel_reps)
+    ms = time_ms(lambda: ksw_extend(*args, **kk), kernel_reps)
     if generic:
-        ms = (ms + time_ms(lambda: ksw_extend(*args, **kw), kernel_reps)) / 2
-        g2 = time_ms(lambda: launch_kernel(args, 0, **kw), kernel_reps)
+        ms = (ms + time_ms(lambda: ksw_extend(*args, **kk), kernel_reps)) / 2
+        g2 = time_ms(lambda: launch_kernel(args, 0, **kk), kernel_reps)
         extra["generic_ms"] = (g1 + g2) / 2
     nbytes = sum(x.numel() * x.element_size() for x in args) + \
         got.numel() * got.element_size()
@@ -1873,9 +1905,9 @@ FULL_CALL_MIXED_READS = 256   # ... in the full call (cut for phase 25)
 CLIP_READS = 64         # chimeric and adapter-clipped reads, each
 SCALE_MBP = 64          # phase 15's genome (chr20 size, BASELINE config 3)
 SCALE_READS = 8192      # phase 15's timed SE reads (2 batches of 4096)
-FULL_CALL_SCALE_READS = 2048   # ... in the full call (cut for time)
+FULL_CALL_SCALE_READS = 1024   # ... in the full call (cut for time)
 SCALE_PE_PAIRS = 1024   # phase 15's PE row: pairs a batch (warm-up, timed)
-FULL_CALL_SCALE_PE_PAIRS = 256   # ... in the full call (cut for time)
+FULL_CALL_SCALE_PE_PAIRS = 128   # ... in the full call (cut for time)
 
 
 def count_k1(fn, log: list, first: list = None):
@@ -2497,7 +2529,7 @@ FULL_CALL_REPS = 1      # ... in the full call (cut for time)
 PARITY_READS = 2048     # phase 17: parity's SE reads (2% / 0.2% errors)
 FULL_CALL_PE_PAIRS = 256   # profile_pe's pairs in the full call (cut)
 FULL_CALL_PARITY_READS = 512   # parity's reads in the full call (cut)
-FULL_CALL_PROFILE_READS = 1024  # the other tools' reads in the full call
+FULL_CALL_PROFILE_READS = 512   # the other tools' reads in the full call
 REHEARSAL_PAIRS = 768   # phase 18: run_1m's pairs at 64 Mbp (cut from 3072)
 REHEARSAL_BATCH = 512   # ... and its --batch-size (256 pairs a batch)
 
@@ -3068,7 +3100,11 @@ class kernel_calls:
     (``kernel_ms``); the rescue calls' (Q, T) go to ``k2_shapes``, and
     the generic K2 launches whose window T is 2048 or more to ``wide``,
     the forward ones also to ("K2 fwd wide", 0) in ``counts`` and
-    ``first``."""
+    ``first``. With ``by_width`` K1's launches are also logged by query
+    width: ``q_counts``, ``q_first`` and ``q_events`` (``width_ms``)."""
+
+    def __init__(self, by_width: bool = False):
+        self.by_width = by_width
 
     def __enter__(self):
         import torch
@@ -3079,6 +3115,7 @@ class kernel_calls:
         real1, real2 = self.real
         self.counts, self.first, self.events = {}, {}, {}
         self.k2_shapes, self.wide = set(), 0
+        self.q_counts, self.q_first, self.q_events = {}, {}, {}
 
         def run(key, args, fn):
             if not args[0].shape[0]:
@@ -3096,8 +3133,17 @@ class kernel_calls:
             return out
 
         def k1(*args, **kw):
-            key = ("K1", sw.kernel_instance(args[0].shape[1]))
-            return run(key, args, lambda: real1(*args, **kw))
+            Q = args[0].shape[1]
+            key = ("K1", sw.kernel_instance(Q))
+            if not self.by_width or not args[0].shape[0]:
+                return run(key, args, lambda: real1(*args, **kw))
+            self.q_counts[Q] = self.q_counts.get(Q, 0) + 1
+            if Q not in self.q_first:
+                self.q_first[Q] = tuple(a.clone() for a in args)
+            out = run(key, args, lambda: real1(*args, **kw))
+            if args[0].is_cuda:
+                self.q_events.setdefault(Q, []).append(self.events[key][-1])
+            return out
 
         def k2(*args, want_sub, **kw):
             Q, T = args[0].shape[1], args[2].shape[1]
@@ -3140,6 +3186,14 @@ class kernel_calls:
         return {f"{k} {instance_name(i)}": sum(a.elapsed_time(b)
                                                for a, b in evs)
                 for (k, i), evs in sorted(self.events.items())}
+
+    def width_ms(self) -> dict:
+        """Device ms of K1's launches by query width (``by_width``)."""
+        import torch
+        if self.q_events:
+            torch.cuda.synchronize()
+        return {q: sum(a.elapsed_time(b) for a, b in evs)
+                for q, evs in sorted(self.q_events.items())}
 
     def first_call(self, kernel: str):
         """The inputs of ``kernel``'s first launch ("K1", "K2 fwd"), of
@@ -3791,6 +3845,312 @@ def long_pe_entries(runs: dict, card: str) -> list:
     return out
 
 
+# Phase 26: long single-end reads on the bench world. Batch letter ->
+# (reads, length (None: log-normal 1-12 kbp), tools/long_reads.py profile,
+# option set (None: bwa's defaults), seed, the batch's padded width). (b)
+# is padded one 64-lane bucket past its longest read, so that align_se
+# splits it into length buckets; (c) as the command line pads a batch, to
+# its longest read, so that it runs as one full-width call.
+LONG_SE = {"a": (512, 4096, "hifi", None, 61, 4096),
+           "b": (512, None, "clr", "pacbio", 62, 12288 + 64),
+           "c": (512, None, "ont", "ont2d", 63, 12288),
+           "d": (256, 12288, "hifi", None, 64, 12288),
+           "e": (4, 32768, "hifi", None, 65, 32768)}
+LONG_SE_LABELS = {"a": "(a) 4096 bp hifi",
+                  "b": "(b) 1-12 kbp clr, pacbio, length buckets",
+                  "c": "(c) 1-12 kbp ont, ont2d, one call",
+                  "d": "(d) 12288 bp hifi",
+                  "e": "(e) 32768 bp hifi (the packed row's widest query)"}
+LONG_SE_CLI = 128           # the command line's reads of (b)
+FULL_CALL_LONG_SE = 64      # the full call: (a) alone, at 64 reads
+LONG_SE_WIDTHS = (4096, 8192, 12288, 32768)   # K1's entries, by Q
+LONG_SE_FULL_TASKS = 8      # K1's entry at Q = 32768: full-width tasks
+# the packed row's fields that a long read can pass (pipeline.py::_pack)
+PACK_FIELDS = (("seedcov", 0x3FF), ("seedlen0", 0x3FF))
+PACK_SPANS = (("qe-qb", "qe", "qb", 0xFFFF), ("re-rb", "re", "rb", 0xFFFF))
+
+
+class overflow_fields:
+    """A context in which ``aln``'s tier-1 worker1 calls (through
+    ``_dispatch_se``) record, before packing, each read's tier-1 overflow
+    by cause: ``caps`` (a cap or dense budget of worker1's stages), a
+    region's ``seedcov`` or ``seedlen0`` above 0x3FF, ``qe-qb`` or
+    ``re-rb`` above 0xFFFF, and ``any`` (the read's packed overflow, the
+    other fields and the buffer's capacity included). Padding rows of a
+    length bucket are not counted. ``buckets`` counts the tier-1 calls."""
+
+    def __init__(self, aln):
+        self.aln = aln
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from tpubwa_torch import pipeline
+        self.real_pack, self.real_dispatch = pipeline._pack, \
+            self.aln._dispatch_se
+        self.counts = {k: 0 for k in ("caps", "seedcov", "seedlen0",
+                                      "qe-qb", "re-rb", "any")}
+        self.buckets, self.calls = 0, None
+        real_pack, real_dispatch = self.real_pack, self.real_dispatch
+
+        def pack(st, l_rep, R, cap):
+            out = real_pack(st, l_rep, R, cap)
+            if self.calls is None:          # a tier-2 or tier-3 call
+                return out
+            valid = torch.arange(st["qb"].shape[1], device=st["n"].device
+                                 )[None, :] < st["n"][:, None]
+            f = {"caps": st["overflow"].bool()}
+            for k, hi in PACK_FIELDS:
+                f[k] = (valid & ((st[k] < 0) | (st[k] > hi))).any(dim=1)
+            for k, e, b, hi in PACK_SPANS:
+                d = st[e].to(torch.int64) - st[b].to(torch.int64)
+                f[k] = (valid & ((d < 0) | (d > hi))).any(dim=1)
+            B = st["n"].shape[0]
+            f["any"] = (out[:B] >> 10) & 1 > 0
+            self.calls.append({k: v.cpu().numpy() for k, v in f.items()})
+            return out
+
+        def dispatch(batch):
+            self.calls = []
+            try:
+                parts = real_dispatch(batch)
+            finally:
+                calls, self.calls = self.calls, None
+            for (rows, _, n_sub), f in zip(parts, calls):
+                n = n_sub if rows is None else len(rows)
+                for k in self.counts:
+                    self.counts[k] += int(np.count_nonzero(f[k][:n]))
+            self.buckets += len(parts)
+            return parts
+        pipeline._pack, self.aln._dispatch_se = pack, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from tpubwa_torch import pipeline
+        pipeline._pack = self.real_pack
+        del self.aln._dispatch_se
+        return False
+
+
+def long_se_aligner(idx, name):
+    """An Aligner on the card at option set ``name`` (bwa's defaults for
+    None), the bench world's LUT cache."""
+    from tpubwa_torch.pipeline import Aligner
+    from tpubwa_torch.tools import bench_world
+    opt, _ = set_options(name)
+    return Aligner(idx, opt, device=DEVICE, lut_cache=bench_world.lut_path())
+
+
+def long_se_batches(idx, full: bool) -> dict:
+    """Phase 26's batches by letter (LONG_SE; tools/long_reads.py, 5%
+    chimeras): values (ReadBatch, records, option set). With ``full``
+    (the full call) only (a), at FULL_CALL_LONG_SE reads."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import long_reads
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    out = {}
+    for k, (n, length, profile, name, seed, width) in LONG_SE.items():
+        if full and k != "a":
+            continue
+        recs = long_reads.long_reads(fwd, FULL_CALL_LONG_SE if full else n,
+                                     profile, seed, length=length)
+        out[k] = (fastx.batch_reads(recs, max_len=width), recs, name)
+    return out
+
+
+def long_se_run(aln, label: str, batch, card: str) -> dict:
+    """Phase 26 on one batch: held_run through align_se (byte-equal to
+    the oracle at the aligner's options) with K1's launches logged by
+    width and the tier-1 overflow recorded by field; the logged launches
+    equal to the wrapper's count. Prints reads/s, bases/s, the fallback
+    share, the overflow by field, tier-2/3 rows, the length buckets and
+    K1's launches and device ms by width."""
+    with kernel_calls(by_width=True) as calls, overflow_fields(aln) as ovf:
+        r = held_run(aln, "SE", batch, f"long SE {label}", card)
+    r["sam_digest"] = hash_text(r.pop("sam"))
+    if calls.total("K1") != r["k1"]:
+        raise AssertionError(f"long SE {label}: the logged launches "
+                             f"{calls.counts} are not the wrapper's "
+                             f"{r['k1']}")
+    bases = int(batch.lens.sum())
+    ms = calls.width_ms()
+    r.update(calls=calls, bases=bases, bases_per_s=bases / r["s"],
+             fields=dict(ovf.counts), buckets=ovf.buckets,
+             by_width={q: (calls.q_counts[q], ms.get(q, 0.0))
+                       for q in sorted(calls.q_counts)})
+    print(f"long SE {label}: {batch.n} reads, {bases} bases, "
+          f"{r['reads_per_s']:.2f} reads/s, {r['bases_per_s']:.0f} bases/s; "
+          f"fallback share {r['fallback']:.5f}; tier-1 overflow "
+          f"{r['tier1_ovf']}, by field {r['fields']}; tier-2 rows "
+          f"{r['tier2_rows']}, tier-3 rows {r['tier3_rows']}; {ovf.buckets} "
+          f"length buckets; K1 (launches, device ms) by width "
+          f"{ {q: (n, round(t, 3)) for q, (n, t) in r['by_width'].items()} }"
+          f", {sum(ms.values()):.3f} ms in all, "
+          f"{100 * sum(ms.values()) / 1e3 / r['s']:.2f}% of the batch's "
+          f"{r['s']:.3f} s [{card}]", flush=True)
+    if r["fields"]["any"] != r["tier1_ovf"]:
+        raise AssertionError(f"long SE {label}: {r['fields']['any']} reads "
+                             f"flagged at packing, the aligner counts "
+                             f"{r['tier1_ovf']}")
+    return r
+
+
+def long_se_stream(alns: dict, batches: dict, runs: dict, card: str) -> dict:
+    """Phase 26's stream: align_se_stream of (a) then (b) under bwa's
+    defaults, K1's count set to 0 just before and read just after: (a)'s
+    SAM byte-equal to its align_se run, which the oracle held, (b)'s to
+    the oracle at the defaults."""
+    import torch
+    from tpubwa_torch.ops import sw
+    aln = alns[None]
+    order = [batches["a"][0], batches["b"][0]]
+    wants = [runs["a"]["sam_digest"], None]
+    orc_b = aln.oracle.align_se(order[1], aln.opt, id0=0)
+    aln.stats = {"reads": 0, "fallback_reads": 0}
+    torch.cuda.synchronize()
+    sw.ksw_extend.launches = 0
+    t0 = time.perf_counter()
+    got = list(aln.align_se_stream([(b, 0) for b in order]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1 = sw.ksw_extend.launches
+    if hash_text(got[0]) != wants[0]:
+        raise AssertionError("phase 26 stream: (a) differs from its "
+                             "align_se run")
+    first_diff(got[1], orc_b, "phase 26 stream: (b) at bwa's defaults "
+               "against the oracle")
+    n = sum(b.n for b in order)
+    print(f"long SE stream (a) then (b) at bwa's defaults ({n} reads): both "
+          f"byte-equal (to (a)'s align_se run and to the oracle) in "
+          f"{dt:.3f} s ({n / dt:.2f} reads/s); fallback share "
+          f"{aln.stats['fallback_reads'] / max(aln.stats['reads'], 1):.5f};"
+          f" K1 launches {k1} [{card}]", flush=True)
+    if k1 <= 0:
+        raise AssertionError("phase 26 stream launched no K1")
+    return dict(s=dt, reads_per_s=n / dt, k1=k1)
+
+
+def hash_text(s: str) -> str:
+    import hashlib
+    return hashlib.sha256(s.encode()).hexdigest()
+
+
+def long_se_cli(aln, recs, card: str) -> dict:
+    """Phase 26's command line: `python -m tpubwa_torch align idx r.fq
+    --platform cuda` with the pacbio flags on the first LONG_SE_CLI reads
+    of (b): the header's @SQ lines the index's contigs, the file
+    byte-equal to the header + Oracle.align_se at the same options, K1
+    launched."""
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import bench_world
+    from tpubwa_torch.tools.option_sets import SETS
+    d = smoke_dir()
+    fastx.write_fastq(d / "long.fq", recs[:LONG_SE_CLI])
+    se = list(fastx.iter_fastq(d / "long.fq"))
+    header = aln.sam_header()
+    sq = [l for l in header.splitlines() if l.startswith("@SQ")]
+    if sq != [f"@SQ\tSN:{a.name}\tLN:{a.length}" for a in aln.idx.anns]:
+        raise AssertionError(f"phase 26 CLI: the header's @SQ lines {sq} "
+                             "are not the index's contigs")
+    want = header + aln.oracle.align_se(fastx.batch_reads(se), aln.opt,
+                                        id0=0)
+    t0 = time.time()
+    err = run_cli(["align", str(bench_world.BUILD /
+                                f"smoke_index_{GENOME_LEN}.npz"),
+                   str(d / "long.fq"), "-o", str(d / "long.sam"),
+                   "--platform", DEVICE, "--batch-size", str(len(se)),
+                   *SETS["pacbio"]], "CLI SE long reads at pacbio")
+    wall = time.time() - t0
+    first_diff((d / "long.sam").read_text(), want, "CLI SE long reads at "
+               "pacbio against the header + Oracle.align_se")
+    k1, _ = cli_launches(err)
+    print(f"long SE CLI ({' '.join(SETS['pacbio'])}): {len(se)} reads of "
+          f"(b), {len(sq)} @SQ line(s) the index's, whole file byte-equal "
+          f"to the header + Oracle.align_se; the CLI says: "
+          f"{cli_line(err, 'total')}; process wall {wall:.1f} s; K1 "
+          f"launches {k1} [{card}]", flush=True)
+    if k1 <= 0:
+        raise AssertionError("the CLI on long reads launched no K1")
+    return dict(wall=wall, k1=k1)
+
+
+def long_se_phase(card: str, aln=None, full: bool = False) -> dict:
+    """Phase 26: long single-end reads on the card (the bench world). The
+    batches of long_se_batches through long_se_run, each under its option
+    set's Aligner(device="cuda") (``aln`` for bwa's defaults when given);
+    without ``full`` also the stream and the command line. Checks that K1
+    ran at every width of LONG_SE_WIDTHS that the batches hold. Returns
+    the runs."""
+    t0 = time.time()
+    idx = aln.idx if aln is not None else None
+    if idx is None:
+        from tpubwa_torch.tools import bench_world
+        idx = bench_world.get_index()
+    batches = long_se_batches(idx, full)
+    alns = {None: aln} if aln is not None else {}
+    runs = {}
+    for k, (batch, _, name) in batches.items():
+        if name not in alns:
+            alns[name] = long_se_aligner(idx, name)
+        runs[k] = long_se_run(alns[name], LONG_SE_LABELS[k], batch, card)
+    widths = {q for r in runs.values() for q in r["by_width"]}
+    missing = [q for q in LONG_SE_WIDTHS[:1 if full else None]
+               if q not in widths]
+    if missing:
+        raise AssertionError(f"phase 26 ran K1 at no width {missing}")
+    if not full:
+        runs["stream"] = long_se_stream(alns, batches, runs, card)
+        runs["cli"] = long_se_cli(alns["pacbio"], batches["b"][1], card)
+    print(f"phase 26 took {time.time() - t0:.1f} s [{card}]", flush=True)
+    return runs
+
+
+def long_se_entries(runs: dict, card: str) -> list:
+    """Phase 6 for phase 26: K1 on its first call at each width of
+    LONG_SE_WIDTHS that the batches ran (the first batch in letter order
+    that holds it), held to its plain version (timed once) and timed
+    beside its bound; the launches are K1's at that width over the
+    phase's batches."""
+    out = []
+    for q in LONG_SE_WIDTHS:
+        ks = [k for k in sorted(runs) if q in runs[k].get("by_width", {})]
+        if not ks:
+            continue
+        n_l = sum(runs[k]["by_width"][q][0] for k in ks)
+        path = (f"SE long reads, Q={q}, generic ring instance (phase 26, "
+                f"{', '.join(ks)})")
+        args = runs[ks[0]]["calls"].q_first[q]
+        if q == max(LONG_SE_WIDTHS):
+            # (e)'s reads overflow the seeding caps, so its calls at this
+            # width extend no live task: the kernel runs full-width tasks
+            args = full_width_tasks(q, LONG_SE_FULL_TASKS, 66)
+            path += f", on {LONG_SE_FULL_TASKS} full-width tasks"
+        out.append(k1_entry(f"ksw_extend_se{q}", path, args, n_l, card))
+    return out
+
+
+def full_width_tasks(Q: int, n: int, seed: int) -> tuple:
+    """n K1 tasks of width Q on the card that extend over the whole width:
+    a random target of Q + 200 bases, a query cut from it under
+    tools/long_reads.py's hifi errors, h0 a seed's score, bwa's default
+    band and end bonus."""
+    import numpy as np
+    import torch
+    from tpubwa_torch.tools import long_reads
+    rng = np.random.default_rng(seed)
+    T = Q + 200
+    ta = rng.integers(0, 4, (n, T)).astype(np.int32)
+    qa = np.full((n, Q), 4, np.int32)
+    for i in range(n):
+        q = long_reads.mutate(ta[i], rng, "hifi")[:Q]
+        qa[i, :len(q)] = q
+    c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(DEVICE)  # noqa
+    return (c(qa), c([Q] * n), c(ta), c([T] * n),
+            c(rng.integers(20, 60, n)), c([100] * n), c([5] * n),
+            c([1] * n))
+
+
 def k1_entry(name: str, path: str, args, n_l: int, card: str,
              scoring=None, zdrop=100) -> tuple:
     """K1 on a path's first call (``args``), held to its plain version and
@@ -3918,7 +4278,7 @@ def main() -> int:
     # phases 1-2
     bprep = start_bench_prepare() \
         if sys.argv[1:] in ([], ["pe_window"], ["options"], ["contigs"],
-                            ["long_pe"]) \
+                            ["long_pe"], ["long_se"]) \
         else None
     atexit.register(stop, bprep)
     timed_phase("1 (build)", build)
@@ -4016,6 +4376,16 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phase 25 only"}))
         return 0
+    if sys.argv[1:] == ["long_se"]:
+        wait_prepare(bprep, "bench world prepare", card)
+        lse = timed_phase("26 (long SE)", long_se_phase, card)
+        print(json.dumps({"kernels": [kernel_entry(*e[:5], 0, e[5])
+                                      for e in long_se_entries(lse, card)]}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phase 26 only"}))
+        return 0
     if sys.argv[1:] == ["pe_window"]:
         wait_prepare(bprep, "bench world prepare", card)
         timed_phase("22 (PE window)", pe_window_phase, card)
@@ -4073,6 +4443,8 @@ def main() -> int:
                       FULL_CALL_CONTIG_EDGES, aln.idx)
     # phase 25's short piece, also before the 64 Mbp build process starts
     lpe = timed_phase("25 (long PE)", long_pe_phase, card, aln, True)
+    # phase 26's short piece, also before the 64 Mbp build process starts
+    lse = timed_phase("26 (long SE)", long_se_phase, card, aln, True)
     # the 64 Mbp caches (and phase 20's 2 Mbp ones) build on the host
     # while phases 7-14 run
     prep = start_scale_prepare()
@@ -4141,7 +4513,7 @@ def main() -> int:
     new = new_path_entries(longr, i64, scale, card) + \
         [diag_entry(diag, card)] + profile_entries(prof, card) + \
         [dryrun_entry(dry, card)] + contig_entries(ctg, card) + \
-        long_pe_entries(lpe, card)
+        long_pe_entries(lpe, card) + long_se_entries(lse, card)
     opt_kernels = option_kernels(opts, FULL_CALL_OPTION_SETS, card)
     print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
     # one entry per kernel and path: K1 on the SE and the PE path (other
@@ -4149,7 +4521,8 @@ def main() -> int:
     # the later slices' paths: K1 on the long, int64 and 64 Mbp paths, K2
     # on the 64 Mbp PE row, K1 in phase 16, K1 and K2 in phase 17, K1 in
     # phase 20, K1 and K2 in phase 24, K1 and K2 (both passes, and at
-    # T >= 2048) at 2x300 in phase 25 (then phase 23's)
+    # T >= 2048) at 2x300 in phase 25, K1 at Q = 4096 in phase 26 (then
+    # phase 23's)
     kernels = [
         kernel_entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches,
                      worst, r1["SE"]),

@@ -157,7 +157,7 @@ def test_ref_matches_pallas_and_batch_on_boundary_shapes(Q):
 @pytest.mark.parametrize("Q,instance", [
     (1, 1), (31, 1), (32, 1), (33, 2), (100, 4), (128, 4), (129, 5),
     (150, 5), (160, 5), (161, 6), (256, 8), (257, 9), (288, 9), (289, 0),
-    (1024, 0), (3000, 0)])
+    (1024, 0), (3000, 0), (32768, 0)])
 def test_kernel_instance_follows_query_width(Q, instance):
     """K = ceil(Q / 32) columns a lane up to MAX_K, the generic instance
     (0) beyond; the width alone decides."""
@@ -167,12 +167,17 @@ def test_kernel_instance_follows_query_width(Q, instance):
 
 
 def test_kernel_instance_refuses_what_no_instance_holds():
-    # the generic instance keeps four (Q + 1)-int rows per task in shared
-    # memory, four tasks a block
+    # the generic instance keeps four int rows per task in shared memory
+    # over min(ring, Q + 1) columns (the ring a power of two of at least
+    # 2w + 2 for the band w), four tasks a block: up to the widest
+    # (Q + 1)-column row that fits, any band; past it, a band whose ring
+    # does not fit raises, and the options' bands fit
     fits = cubuild.SMEM_MAX // (cubuild.WARPS * 4 * 4) - 1
-    assert sw.kernel_instance(fits) == 0
+    assert sw.kernel_instance(fits, 10**6) == 0
     with pytest.raises(ValueError, match="shared memory"):
-        sw.kernel_instance(fits + 1)
+        sw.kernel_instance(fits + 1, 10**6)
+    assert sw.kernel_instance(fits + 1, 100) == 0
+    assert sw.kernel_instance(fits + 1) == 0
 
 
 def test_launch_refuses_bad_penalties_and_cpu_tensors():

@@ -91,7 +91,7 @@ __device__ __forceinline__ int warp_min(int v) {
   return __reduce_min_sync(kFull, v);
 }
 
-// Butterfly reductions of the generic (shared-memory) instances.
+// Butterfly reductions of K2's generic (shared-memory) instance.
 __device__ __forceinline__ int warp_max_xor(int v) {
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
   return v;

@@ -52,9 +52,10 @@
 // its own task ends.
 //
 // Queries too long for the largest register instance (Q > 32 * kMaxK)
-// take the generic instance: the same function with the row in shared
-// memory, three passes a row, butterfly reductions. The instance is chosen
-// by shape (ops/sw.py::kernel_instance), never by failure.
+// take the generic instance: the same function with the live band of the
+// rows in a ring in shared memory, sized by the band and not by Q, so any
+// width launches (three passes a row over the band). The instance is
+// chosen by shape (ops/sw.py::kernel_instance), never by failure.
 #include "ksw_common.cuh"
 
 namespace {
@@ -295,16 +296,33 @@ __global__ void __launch_bounds__(32 * kWarps) ksw_extend_reg_kernel(
   }
 }
 
-// The generic instance: any Q whose rows fit a block's shared memory. The
-// warp's eh_h / eh_e rows, its query codes and the current DP row live in
-// shared memory (4 * (Q+1) ints per warp); each cell is touched in three
-// passes, with a __syncwarp between them.
-__global__ void ksw_extend_generic_kernel(
+// The generic instance: any Q. ksw_extend2 reads and writes row i only in
+// the columns [bg, en] of its band, inside [i - w, i + w + 1]; bg never
+// falls and a column is first read with the value the first row gave it.
+// So the warp keeps the live part of its rows (query codes, eh_h, eh_e and
+// the current DP row H(i, .)) in a ring of P columns in shared memory,
+// column j in slot j & (P - 1), with P a power of two at least 2w + 2: the
+// columns one row touches are at most 2w + 2 apart, and a column written at
+// row k and read again at row i > k is at most 2w + 1 from any column
+// written between (all lie in [k - w, i + w + 1] with the read one at or
+// above i - w and at or below k + w + 1). A column that enters the band for
+// the first time (above `hiw`, the highest column filled so far) is filled
+// with the first row's value, h0 - o_ins - e_ins * j clamped at 0 (h0 at
+// column 0), eh_e 0 and its query code. The block's shared memory depends
+// on the band, not on Q (min(P, Q + 1) columns: below P no column wraps).
+// Each row: the band's DP columns [bg, en) are split over the 32 lanes in
+// contiguous chunks; pass 1 takes each lane's maximum of the insertion term
+// A, one exclusive scan over the lanes gives each lane its F carry, pass 2
+// computes F, H and E' in place, pass 3 writes ksw's index-shifted eh_h
+// over [bg, en] and finds the live band's first and last entry on the way.
+// A task whose band passes the ring (a w above the w_max the launch was
+// sized for) writes INT_MIN into its six outputs.
+__global__ void __launch_bounds__(32 * kWarps) ksw_extend_ring_kernel(
     const int *__restrict__ query, const int *__restrict__ qlen_a,
     const int *__restrict__ target, const int *__restrict__ tlen_a,
     const int *__restrict__ h0_a, const int *__restrict__ w_a,
     const int *__restrict__ eb_a, const int *__restrict__ valid_a,
-    int *__restrict__ out, int N, int Q, int T, int o_del, int e_del,
+    int *__restrict__ out, int N, int Q, int T, int P, int o_del, int e_del,
     int o_ins, int e_ins, int zdrop, int a, int b) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
@@ -312,15 +330,12 @@ __global__ void ksw_extend_generic_kernel(
   const int task = blockIdx.x * kWarps + warp;
   if (task >= N) return;  // warp-uniform
 
-  const int Q1 = Q + 1;
-  int *sq = smem + warp * 4 * Q1;  // query codes [Q]
-  int *eh = sq + Q1;               // eh_h [Q+1]: H(i-1, j-1)
-  int *ee = eh + Q1;               // eh_e [Q+1]
-  int *hr = ee + Q1;               // H(i, j) of the current row [Q]
-  const int K = (Q1 + 31) / 32;
-  const int c0 = min(lane * K, Q1);
-  const int c1 = min(c0 + K, Q1);
-  const int cq1 = min(c1, Q);      // column range [c0, cq1) of the DP row
+  const int R = min(P, Q + 1);     // slots a row of the ring holds
+  const int mask = P - 1;
+  int *sq = smem + warp * 4 * R;   // query code of column j
+  int *eh = sq + R;                // eh_h[j]: H(i-1, j-1)
+  int *ee = eh + R;                // eh_e[j]
+  int *hr = ee + R;                // H(i, j) of the current row
 
   const int qlen = qlen_a[task], tlen = tlen_a[task], h0 = h0_a[task];
   const int eb = eb_a[task];
@@ -332,83 +347,100 @@ __global__ void ksw_extend_generic_kernel(
   const int max_ins = max(floordiv(qlen * max_sc + eb - o_ins, e_ins) + 1, 1);
   const int max_del = max(floordiv(qlen * max_sc + eb - o_del, e_del) + 1, 1);
   const int w = min(min(w_a[task], max_ins), max_del);
+  int *o = out + (size_t)task * 6;
+  if (P < Q + 1 && 2 * w + 2 > P) {
+    if (lane < 6) o[lane] = INT_MIN;
+    return;
+  }
 
   const int *qrow = query + (size_t)task * Q;
   const int *trow = target + (size_t)task * T;
-  for (int j = c0; j < c1; ++j) {
-    const int v = j == 0 ? h0 : max(h0 - o_ins - e_ins * j, 0);
-    eh[j] = j <= qlen ? v : 0;
-    ee[j] = 0;
-    if (j < Q) sq[j] = min(max(qrow[j], 0), 4);
-  }
-  __syncwarp();
-
   int beg = 0, end = qlen, mx = h0, max_i = -1, max_j = -1, max_ie = -1;
   int gscore = -1, max_off = 0;
-  bool done = valid_a[task] == 0 || qlen <= 0 || tlen <= 0;
+  int hiw = -1;                    // the highest column filled so far
+  int tchunk = 4;
+  bool done = valid_a[task] == 0 || qlen <= 0 || tlen <= 0 || T <= 0;
 
   for (int i = 0; !done && i < tlen; ++i) {
     const int bg = max(beg, i - w);
     const int en = min(min(end, i + w + 1), qlen);
-    const int tc = clamp_code(trow[min(i, T - 1)]);
+    if ((i & 31) == 0) tchunk = load_bases(trow, i, lane, T);
+    const int tc = __shfl_sync(kFull, tchunk, i & 31);
 
-    // pass 1: the lane's max of A over its in-band columns
-    int amax = INT_MIN / 2;
-    for (int j = max(c0, bg); j < min(cq1, en); ++j) {
-      const int mp = eh[j];
-      const int m = mp != 0 ? mp + score_plain(tc, sq[j], a, b) : 0;
+    // columns entering the band for the first time (en <= qlen <= Q)
+    for (int j = max(hiw + 1, bg) + lane; j <= en; j += 32) {
+      const int s = j & mask;
+      eh[s] = j == 0 ? h0 : max(h0 - o_ins - e_ins * j, 0);
+      ee[s] = 0;
+      sq[s] = j < Q ? clamp_code(qrow[j]) : 4;
+    }
+    hiw = max(hiw, en);
+    __syncwarp();
+
+    // the lane's chunk [c0, c1) of the band's DP columns [bg, en)
+    const int kc = (max(en - bg, 0) + 31) >> 5;
+    const int c0 = bg + lane * kc;
+    const int c1 = min(c0 + kc, en);
+
+    // pass 1: the lane's maximum of A over its chunk
+    int amax = kNeg;
+    for (int j = c0; j < c1; ++j) {
+      const int s = j & mask;
+      const int mp = eh[s];
+      const int m = mp != 0 ? mp + score_plain(tc, sq[s], a, b) : 0;
       amax = max(amax, max(m - oe_ins, 0) + e_ins * j);
     }
-    int incl = amax;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl = max(incl, v);
-    }
-    int carry = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) carry = INT_MIN / 2;
+    int carry = warp_excl_max(amax, lane);
 
-    // pass 2: F, H, next E (in place), lane row max and last argmax
+    // pass 2: F, H, next E (in place), lane row max and its last column
     int lm = 0, lj = -1;
-    for (int j = max(c0, bg); j < min(cq1, en); ++j) {
-      const int mp = eh[j];
-      const int m = mp != 0 ? mp + score_plain(tc, sq[j], a, b) : 0;
-      const int e = ee[j];
+    for (int j = c0; j < c1; ++j) {
+      const int s = j & mask;
+      const int mp = eh[s];
+      const int m = mp != 0 ? mp + score_plain(tc, sq[s], a, b) : 0;
+      const int e = ee[s];
       const int f = j > bg ? max(carry - e_ins * (j - 1), 0) : 0;
       carry = max(carry, max(m - oe_ins, 0) + e_ins * j);
-      const int h = max(max(m, e), f);
-      hr[j] = h;
-      ee[j] = max(max(m - oe_del, 0), e - e_del);
-      if (h > lm) {
+      const int h = max3(m, e, f);
+      hr[s] = h;
+      ee[s] = max(max(m - oe_del, 0), e - e_del);
+      if (h > lm || (h == lm && h > 0)) {
         lm = h;
-        lj = j;
-      } else if (h == lm && h > 0) {
         lj = j;
       }
     }
     __syncwarp();
-    const int mm = warp_max_xor(lm);
-    const int mj = warp_max_xor(lm == mm && mm > 0 ? lj : -1);
+    const int mm = warp_max(lm);
+    const int mj = warp_max(lm == mm && mm > 0 ? lj : -1);
     const int h1_init =
         bg == 0 ? max(h0 - (o_del + e_del * (i + 1)), 0) : 0;
-    const int h1_last = en > bg ? hr[en - 1] : h1_init;
+    const int h1_last = en > bg ? hr[(en - 1) & mask] : h1_init;
 
-    // pass 3: index-shifted eh_h write-back, eh_e[end] = 0
-    for (int j = c0; j < c1; ++j) {
-      if (j >= bg && j <= en) eh[j] = j == bg ? h1_init : hr[j - 1];
-      if (j == en) ee[j] = 0;
+    // pass 3: index-shifted eh_h write-back over [bg, en], eh_e[en] = 0,
+    // and the live band over the updated entries: the first live entry of
+    // [bg, en) and the last of [bg, en] (the plain version's second scan
+    // of [beg2, en] gives the same: see the register instances)
+    int lo = INT_MAX, hi = -1;
+    const int k3 = (max(en - bg + 1, 0) + 31) >> 5;
+    const int d0 = bg + lane * k3;
+    const int d1 = min(d0 + k3, en + 1);
+    for (int j = d0; j < d1; ++j) {
+      const int s = j & mask;
+      const int v = j == bg ? h1_init : hr[(j - 1) & mask];
+      eh[s] = v;
+      int e = 0;
+      if (j == en)
+        ee[s] = 0;
+      else
+        e = ee[s];
+      if (v != 0 || e != 0) {
+        if (j < en) lo = min(lo, j);
+        hi = j;
+      }
     }
-    __syncwarp();
-
-    // live-band shrink over the updated eh in [beg, end]
-    int lo = INT_MAX;
-    for (int j = max(c0, bg); j < min(c1, en); ++j)
-      if (eh[j] != 0 || ee[j] != 0) lo = min(lo, j);
-    const int beg2 = min(warp_min_xor(lo), en);
-    int hi = -1;
-    for (int j = max(c0, beg2); j < min(c1, en + 1); ++j)
-      if (eh[j] != 0 || ee[j] != 0) hi = max(hi, j);
-    hi = warp_max_xor(hi);
-    const int last_live = hi >= 0 ? hi : beg2 - 1;
+    const int beg2 = min(warp_min(lo), en);
+    const int hi_w = warp_max(hi);
+    const int last_live = max(hi_w >= beg2 ? hi_w : beg2 - 1, -1);
     const int end2 = min(last_live + 2, qlen);
 
     // to-query-end score; ksw tie rule: max_ie updates when h1 >= gscore
@@ -430,12 +462,11 @@ __global__ void ksw_extend_generic_kernel(
     }
     beg = beg2;
     end = end2;
-    done = done || done_now;
+    done = done_now;
     __syncwarp();
   }
 
   if (lane == 0) {
-    int *o = out + (size_t)task * 6;
     o[0] = mx;
     o[1] = max_j + 1;
     o[2] = max_i + 1;
@@ -464,16 +495,20 @@ int launch_reg(const int *query, const int *qlen, const int *target,
 // contiguous int32 arrays: query (N, Q), qlen, target (N, T), tlen, h0, w,
 // end_bonus, valid (N,), out (N, 6). `instance` is the number of columns a
 // lane owns in the register kernel (1..9, with Q <= 32 * instance) or 0
-// for the generic shared-memory kernel. Launches on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for an instance
-// that cannot hold Q); does not synchronise.
+// for the generic ring kernel, whose ring holds `ring` columns (a power of
+// two, at least 2w + 2 for every task's w; ops/sw.py::ring_cols) and whose
+// block takes kWarps * 4 * min(ring, Q + 1) ints of shared memory. Launches
+// on `stream` and returns cudaGetLastError() (0 on success;
+// cudaErrorInvalidValue for an instance that cannot hold Q or a ring that
+// is not a power of two); does not synchronise.
 extern "C" int ksw_extend_launch(const int *query, const int *qlen,
                                  const int *target, const int *tlen,
                                  const int *h0, const int *w,
                                  const int *end_bonus, const int *valid,
                                  int *out, int N, int Q, int T, int o_del,
                                  int e_del, int o_ins, int e_ins, int zdrop,
-                                 int a, int b, int instance, void *stream) {
+                                 int a, int b, int instance, int ring,
+                                 void *stream) {
   if (N <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (instance < 0 || instance > kMaxK ||
@@ -491,16 +526,18 @@ extern "C" int ksw_extend_launch(const int *query, const int *qlen,
       break;
   }
 #undef KSW_REG
-  const size_t smem = (size_t)kWarps * 4 * (Q + 1) * sizeof(int);
+  if (ring < 2 || (ring & (ring - 1)) != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)kWarps * 4 * (size_t)min(ring, Q + 1) * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        ksw_extend_generic_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ksw_extend_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (N + kWarps - 1) / kWarps;
-  ksw_extend_generic_kernel<<<blocks, 32 * kWarps, smem, s>>>(
-      query, qlen, target, tlen, h0, w, end_bonus, valid, out, N, Q, T, o_del,
-      e_del, o_ins, e_ins, zdrop, a, b);
+  ksw_extend_ring_kernel<<<blocks, 32 * kWarps, smem, s>>>(
+      query, qlen, target, tlen, h0, w, end_bonus, valid, out, N, Q, T, ring,
+      o_del, e_del, o_ins, e_ins, zdrop, a, b);
   return (int)cudaGetLastError();
 }

@@ -33,7 +33,6 @@ from ..ops.window import (query_window_asc, query_window_desc,
                           text_window_asc, text_window_desc)
 from ..seed.lut import _compact_rows
 
-POS31 = 2**31 - 1
 _I32 = torch.int32
 
 
@@ -77,6 +76,23 @@ def cal_max_gap(cfg: ExtendConfig, qlen):
     if isinstance(qlen, int):
         return min(max(l_del, l_ins, 1), cfg.w * 2)
     return torch.maximum(l_del, l_ins).clamp(min=1).clamp(max=2 * cfg.w)
+
+
+def visit_order(seed_rank, len_s, stored, C: int, L: int):
+    """The order mem_chain2aln visits a read's seeds in: chain rank
+    ascending, then length descending, then slot descending; seeds of a
+    dropped chain (rank C) or not stored go last. Returns (pair_order
+    (B, S) int32, n_pairs (B,)). The key is int64: at tier 3's caps (512
+    chains, 1280 seeds) and 12,288-wide reads an int32 key wraps from
+    rank 137 on."""
+    S = seed_rank.shape[1]
+    s_iota = torch.arange(S, dtype=torch.int64, device=seed_rank.device)
+    key = (seed_rank.to(torch.int64) * (L + 1) + (L - len_s)) * S + \
+        (S - 1 - s_iota)[None, :]
+    visit = stored & (seed_rank < C)
+    key = torch.where(visit, key, C * (L + 1) * S)   # above every visit key
+    pair_order = torch.argsort(key, dim=1, stable=True).to(_I32)
+    return pair_order, visit.sum(dim=1, dtype=_I32)
 
 
 def _row_pick(arr: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
@@ -155,12 +171,7 @@ def extend_chains(didx: DeviceIndex, seqs, lens, seeds: dict, chains: dict,
     rmax0 = torch.maximum(rmax0, lo)
     rmax1 = torch.minimum(rmax1, hi)
 
-    # ---- processing order: (chain rank, len desc, slot desc) ----
-    s_iota = torch.arange(S, dtype=_I32, device=dev)[None, :]
-    key = seed_rank * (L + 1) * S + (L - len_s) * S + (S - 1 - s_iota)
-    key = torch.where(stored & (seed_rank < C), key, POS31)
-    pair_order = torch.argsort(key, dim=1, stable=True).to(_I32)
-    n_pairs = (key < POS31).sum(dim=1, dtype=_I32)
+    pair_order, n_pairs = visit_order(seed_rank, len_s, stored, C, L)
 
     ctx = dict(pair_order=pair_order, n_pairs=n_pairs, qbeg_s=qbeg_s,
                rbeg_s=rbeg_s, len_s=len_s, cid_s=cid_s,
@@ -236,7 +247,7 @@ def _kernel_call(cfg: ExtendConfig, q, ql, t, tl, h, eb: int, aw: int, act):
     o = ksw_extend(c(q), c(ql), c(t), c(tl), c(h), full(aw), full(eb),
                    c(act), o_del=cfg.o_del, e_del=cfg.e_del,
                    o_ins=cfg.o_ins, e_ins=cfg.e_ins, zdrop=cfg.zdrop,
-                   a=cfg.a, b=cfg.b)
+                   a=cfg.a, b=cfg.b, w_max=aw)
     return tuple(o[:, k] for k in range(6))
 
 

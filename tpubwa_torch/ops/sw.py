@@ -12,8 +12,13 @@ Two implementations of one function, decided by the tensors' device:
   with nvcc at first use, bound with ctypes) or raise. There is no
   fallback from the kernel to the plain version. The kernel has register
   instances (a lane keeps K columns of the DP row in registers) for
-  Q <= 288 and a generic shared-memory instance beyond; the query width
-  alone decides (``kernel_instance``).
+  Q <= 288 and a generic instance beyond; the query width alone decides
+  (``kernel_instance``). The generic instance keeps only the live band of
+  the DP rows, in a ring of ``ring_cols(Q, w)`` columns in shared memory,
+  so its block's memory (``smem_bytes``) follows the band w and not Q:
+  every Q launches at the options' bands (Q up to 32,768, the packed
+  row's query begin, at w up to 1,023 and beyond at narrower Q). A band
+  whose ring does not fit a block raises ValueError naming Q and w.
 
 Both return (N, 6) int32: score, qle, tle, gtle, gscore, max_off, with the
 bwa 5x5 matrix (match a, mismatch -b, N scores -1).
@@ -180,23 +185,53 @@ def ksw_extend_ref(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
 def _declare(lib: C.CDLL) -> None:
     lib.ksw_extend_launch.restype = C.c_int
     lib.ksw_extend_launch.argtypes = \
-        [C.c_void_p] * 9 + [C.c_int] * 11 + [C.c_void_p]
+        [C.c_void_p] * 9 + [C.c_int] * 12 + [C.c_void_p]
 
 
-def kernel_instance(Q: int) -> int:
+def kernel_instance(Q: int, w: int | None = None) -> int:
     """Which instance of the kernel takes queries of width Q: K, the
     columns that each of the 32 lanes keeps in registers (1..MAX_K), or 0
-    for the generic shared-memory instance when Q > 32 * MAX_K. Raises
-    ValueError when the generic instance's rows do not fit one block's
-    shared memory."""
+    for the generic ring instance when Q > 32 * MAX_K. With the band ``w``,
+    raises ValueError when the generic instance's ring does not fit one
+    block's shared memory (``smem_bytes``)."""
     K = max(1, -(-Q // 32))
     if K <= MAX_K:
         return K
-    need = WARPS * 4 * 4 * (Q + 1)       # four (Q + 1)-int rows per task
-    if need > SMEM_MAX:
-        raise ValueError(f"ksw_extend: Q={Q} needs {need} bytes of shared "
-                         f"memory per block, over the {SMEM_MAX} available")
+    if w is not None:
+        _check_smem(Q, w)
     return 0
+
+
+def ring_cols(Q: int, w: int) -> int:
+    """The generic instance's ring: a power of two of at least 2w + 2
+    columns (and 32), so that the columns of a task's band, which lie in
+    [i - w, i + w + 1] at row i, never share a slot while they are live.
+    The block holds min(ring, Q + 1) of them: below the ring no column
+    wraps."""
+    need = max(2 * max(int(w), 0) + 2, 32)
+    return 1 << (need - 1).bit_length()
+
+
+def smem_bytes(Q: int, w: int, instance: int | None = None) -> int:
+    """Dynamic shared memory of one block of the instance that takes Q (or
+    of the one named) at band w: none in the register instances; in the
+    generic one four int rows a task (query codes, eh_h, eh_e, the DP row)
+    over min(ring_cols(Q, w), Q + 1) columns, as the launch computes it."""
+    if instance is None:
+        instance = kernel_instance(Q)
+    if instance:
+        return 0
+    return WARPS * 4 * 4 * min(ring_cols(Q, w), Q + 1)
+
+
+def _check_smem(Q: int, w: int):
+    """Raise ValueError when the generic instance's block at (Q, w) does
+    not fit the shared memory a block may take."""
+    need = smem_bytes(Q, w, 0)
+    if need > SMEM_MAX:
+        raise ValueError(f"ksw_extend: Q={Q} at band w={w} needs {need} "
+                         f"bytes of shared memory per block, over the "
+                         f"{SMEM_MAX} available")
 
 
 def build_lib():
@@ -207,11 +242,14 @@ def build_lib():
 
 def launch_kernel(args, instance: int, *, o_del: int, e_del: int,
                   o_ins: int, e_ins: int, zdrop: int, a: int, b: int,
+                  w_max: int | None = None,
                   kernel: KernelLib = _KERNEL) -> torch.Tensor:
     """Launch one given instance of the kernel on checked CUDA tensors
     (``ksw_extend`` picks the instance; a measurement may name another
     that holds Q, such as the generic one, or another build of the source
-    as ``kernel``). Counts the launch."""
+    as ``kernel``). The generic instance's ring is sized for ``w_max``, a
+    bound of the tasks' w (read from ``w`` when not given, one host sync).
+    Counts the launch."""
     query, target = args[0], args[2]
     if target.dim() != 2:
         raise ValueError("ksw_extend: query and target must be 2-D")
@@ -226,12 +264,19 @@ def launch_kernel(args, instance: int, *, o_del: int, e_del: int,
     out = torch.empty((N, 6), dtype=_I32, device=query.device)
     if N == 0:
         return out
+    ring = 0
+    if instance == 0:
+        if w_max is None:
+            w_max = int(args[5].max())
+        _check_smem(Q, w_max)
+        ring = ring_cols(Q, w_max)
     lib = kernel.load(_declare)
     ptrs = [x.data_ptr() for x in args] + [out.data_ptr()]
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ksw_extend_launch(*ptrs, N, Q, T, o_del, e_del, o_ins,
-                                    e_ins, zdrop, a, b, instance, stream)
+                                    e_ins, zdrop, a, b, instance, ring,
+                                    stream)
     with _count_lock:
         ksw_extend.launches += 1
     if err != 0:
@@ -242,14 +287,15 @@ def launch_kernel(args, instance: int, *, o_del: int, e_del: int,
 
 def ksw_extend(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
                o_del: int, e_del: int, o_ins: int, e_ins: int, zdrop: int,
-               a: int, b: int) -> torch.Tensor:
+               a: int, b: int, w_max: int | None = None) -> torch.Tensor:
     """Banded extension of N tasks -> (N, 6) int32 (see module doc).
 
     CPU tensors run the plain version. CUDA tensors must be contiguous
     int32 on one device, query (N, Q), target (N, T), the rest (N,); the
     kernel instance that ``kernel_instance(Q)`` names is launched on the
-    current stream and its launch error, if any, raises. A Q too wide for
-    any instance raises ValueError."""
+    current stream and its launch error, if any, raises. ``w_max`` bounds
+    the tasks' w (the caller's band; read from ``w`` when not given); a
+    band too wide for the generic instance raises ValueError."""
     args = (query, qlen, target, tlen, h0, w, end_bonus, valid)
     kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
               zdrop=zdrop, a=a, b=b)
@@ -257,7 +303,8 @@ def ksw_extend(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
         return ksw_extend_ref(*args, **kw)
     if query.dim() != 2:
         raise ValueError("ksw_extend: query and target must be 2-D")
-    return launch_kernel(args, kernel_instance(query.shape[1]), **kw)
+    return launch_kernel(args, kernel_instance(query.shape[1]),
+                         w_max=w_max, **kw)
 
 
 ksw_extend.launches = 0

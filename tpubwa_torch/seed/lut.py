@@ -274,6 +274,29 @@ def _dense_src(cs: torch.Tensor, D: int, n_all: int) -> torch.Tensor:
     return src.clamp(0, n_all - 1)
 
 
+# Elements of the (lanes, L) windows that the off-diagonal fallback
+# compares at once: its dense set holds B * L // offdiag_dense lanes, so
+# whole windows take B * L**2 // offdiag_dense elements (16 GiB of int64
+# indices at 512 reads of 4096 bp); the lanes go through in slices.
+WINDOW_ELEMS = 1 << 26
+
+
+def _match_run(didx: DeviceIndex, revq: torch.Tensor, rows: torch.Tensor,
+               shift: torch.Tensor, p: torch.Tensor, L: int) -> torch.Tensor:
+    """Per lane: how many leading bases of the reversed read revq[rows],
+    shifted left by ``shift``, equal the text read backward from ``p``
+    (bases, not N, on both sides). Lanes in slices of WINDOW_ELEMS // L."""
+    step = max(WINDOW_ELEMS // max(L, 1), 1)
+    out = []
+    for a in range(0, rows.shape[0], step):
+        qw = shift_left(revq[rows[a:a + step]], shift[a:a + step], L, 4)
+        tw = text_window_desc(didx, p[a:a + step], L).to(torch.int8)
+        eq = (qw == tw) & (qw >= 0) & (qw <= 3)
+        out.append(torch.cumprod(eq.to(torch.int32), dim=1).sum(
+            dim=1, dtype=torch.int32))
+    return torch.cat(out)
+
+
 def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
               lens: torch.Tensor, v: torch.Tensor, shortcut: bool,
               cfg: LutSeedConfig, codes=None, lane_min=None,
@@ -488,14 +511,9 @@ def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
         need3 = live3 & (p3 < 0)       # rank-only lanes: resolve here
         k3 = torch.where(need3, k.reshape(-1)[src3c], 1)
         p3 = torch.where(need3, sa_lookup(didx, k3, need3), p3)
-        revq = seqs.flip(1).to(torch.int8)
-        qw = shift_left(revq[b_of3], L - bp3, L, 4)
-        tw2 = text_window_desc(didx, p3.clamp(1, 2 * l_pac), L) \
-            .to(torch.int8)
+        e_raw = _match_run(didx, seqs.flip(1).to(torch.int8), b_of3,
+                           L - bp3, p3.clamp(1, 2 * l_pac), L)
         tcap = torch.where(p3 >= l_pac, p3 - l_pac, p3)
-        eq = (qw == tw2) & (qw >= 0) & (qw <= 3)
-        e_raw = torch.cumprod(eq.to(torch.int32), dim=1).sum(
-            dim=1, dtype=torch.int32)
         e3 = torch.minimum(torch.minimum(e_raw, bp3), tcap).to(torch.int32)
         e3 = torch.where(live3, e3, 0)
         crossed3 = live3 & (tcap < bp3) & (e_raw >= tcap)
