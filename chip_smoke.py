@@ -184,7 +184,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                with a region on every read, dryrun_multichip(8) over 8
                logical shards of cuda:0 (8 cards where there are) with the
                index widened to int64 and the LOAD test (8 x 1024 reads,
-               2 Mbp; 8 x 512 in the full call), the reference's asserts; its sharded outputs equal
+               2 Mbp; 8 x 256 in the full call), the reference's asserts; its sharded outputs equal
                worker1_step on the blocks and, on every read that
                overflows in neither, on the whole batch (the LOAD test's
                too, against its one-device run); it writes
@@ -241,7 +241,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                file byte-equal to the header + Oracle.align_pe at those
                options. In the full call, after phase 5 (before the 64 Mbp
                build process starts): (a) at all five sets, (b) at scaled2
-               and pacbio on 1024 reads and 512 pairs; in the options call
+               and pacbio on 512 reads and 256 pairs, (c) on those 256
+               pairs; in the options call
                (b) at all five sets on 4096 reads and 2048 pairs.
  24. contigs — references of many contigs: the bench index re-annotated
                with the grch38 (195 contigs) and hs38dh (3366) layouts of
@@ -286,8 +287,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                through (TruSeq adapter), trimmed (36-300 bp an end) and
                rescue pairs at 300 bp in one batch, (d) 1024 broad-insert
                pairs (650 +- 250) and 64 rescue pairs, whose rescue
-               window makes T >= 2048 (the generic K2 instance above 48 KB
-               of shared memory a block), (e) 4096 SE reads of 300 bp
+               window makes T >= 2048, (e) 4096 SE reads of 300 bp
                through align_se, each batch with kernel counts set to 0
                just before and read just after, SAM byte-equal to the
                oracle, no rescue result missing; per batch reads/s,
@@ -300,7 +300,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                512 pairs of (b), the file byte-equal to the header +
                Oracle.align_pe. Fails unless K1's generic instance
                launched on (b), (c) and (e), K2's forward and reverse on
-               (b), K2's generic instance at T >= 2048 above 48 KB on (d),
+               (b), K2's generic instance at T >= 2048 on (d),
                and at 2x250 K1's and K2's K=8 register instances. In the
                full call, after phase 24: (b) and (d) at 256 pairs (16
                rescue pairs), the same checks on what ran.
@@ -328,8 +328,37 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
                the header's @SQ lines the index's and the file byte-equal
                to the header + Oracle.align_se. Fails unless K1 ran at
                Q = 4096, 8192, 12288 and 32768. In the full call, after
-               phase 25: (a) at 64 reads, K1 at Q = 4096.
-Phases 7-20 and 23-26 run between phases 5 and 6, each from counts of its
+               phase 25: (a) at 32 reads, K1 at Q = 4096.
+ 27. mate pairs — mate-pair libraries (tpubwa_torch/tools/mate_pairs.py:
+               outward-facing RF pairs, either strand) on the bench world
+               through Aligner(idx, device="cuda"), where K2's rescue
+               windows reach T = 20-40 k: first K2 on 16 tasks at
+               T = 40,960 (pestat's widest window at max_ins is below it),
+               forward at Q = 150 (K=5) and 300 (generic) and reverse at
+               Q = 150, each held to its plain version; then (a) 2048
+               pairs of 2x150, gel 3000 +- 300, (b) 2048 of 2x150
+               unfractionated (1.5-10 kbp) with 5% junction reads, (c)
+               1024 of 2x300 unfractionated, all three with 15% FR
+               contamination and 64 rescue pairs, (d) 256 of 2x150
+               bimodal (30% at 1.0-1.5 kbp, 70% at 9-10 kbp; T above
+               32 k) with 32 rescue pairs, each with kernel counts set to
+               0 just before and read just after, SAM byte-equal to the
+               oracle, no rescue result missing; per batch reads/s,
+               fallback share, rescue tasks, the properly paired share,
+               pestat's low, high and failed for each orientation (the
+               mirror of native/pe.cpp in tools/mate_pairs.py), the
+               rescue calls' T, K2's launches and device ms by pass and
+               (Q, T), K1's launches and device ms; then align_pe_stream
+               over (a) and (b), each batch byte-equal to its align_pe
+               run, and `python -m tpubwa_torch align idx mp.fq -p
+               --platform cuda` on 512 interleaved pairs of (b), the
+               header's @SQ lines the index's and the file byte-equal to
+               the header + Oracle.align_pe. Fails unless RF is live in
+               every batch and FR where there is contamination, and K2
+               ran at K=5 past T = 14,336 on (b), generic past 13,056 on
+               (c) and past 32,768 on (d). In the full call, after phase
+               26: (b) at 256 pairs (16 rescue pairs), the same checks.
+Phases 7-20 and 23-27 run between phases 5 and 6, each from counts of its
 own; phase 6 also holds K1 on the first call of phases 13, 14, 15, 16 and
 20 and on phase 17's time_extend kernel row, K2 on the first forward call
 of phase 15 and of phase 17's profile_pe, K1 on the first call and K2 on
@@ -337,8 +366,10 @@ the first forward call of phase 24's hs38dh batches, and K1 on the first
 call and K2 on the first forward call of phase 23 (b) at scaled2 and at
 pacbio (at the set's scores), and K1 on the first 2x300 call, K2 on the
 first 2x300 forward and reverse calls and on the first forward call at
-T >= 2048 of phase 25 (generic instances), and K1 on the first call at
-Q = 4096 of phase 26, to their plain versions (19 more entries).
+T >= 2048 of phase 25 (generic instances), K1 on the first call at
+Q = 4096 of phase 26, and K2 on the widest first forward call of phase
+27 (b) (Q = 150, K=5, T past 14,336), to their plain versions (20 more
+entries).
 Phases 3 and 5 also print K1's launches of the timed batches by shape
 (N, Q, T) with their summed time on the card (CUDA events around each).
 Every phase prints its seconds, and the call its whole seconds. In the
@@ -368,7 +399,11 @@ reverse at 2x300, forward at T >= 2048, forward at 2x250 (K=8);
 python3 chip_smoke.py long_se the build and phase 26 at full depth,
 (a)-(e), the stream and the command line, with the kernels line of its
 four entries: K1 on its first call at Q = 4096, 8192 and 12288, and at
-Q = 32768 on 8 full-width tasks, since (e)'s calls extend no live task.)
+Q = 32768 on 8 full-width tasks, since (e)'s calls extend no live task;
+python3 chip_smoke.py mate_pair the build and phase 27 at full depth,
+the stream and the command line, with the kernels line of its five
+entries: K2 forward on (b) at Q = 150 and on (c) at Q = 300, and at
+T = 40,960 forward at Q = 150 and 300 and reverse at Q = 150.)
 """
 import atexit
 import json
@@ -2670,8 +2705,9 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "workload",
 FULL_CALL_BENCH_TIMED = 1   # phase 19's timed SE batches in the full call
 FULL_CALL_BENCH_BATCH = 2048   # ... and their reads (TPUBWA_BENCH_BATCH)
 DRYRUN_DEVICES = 8          # phase 20's mesh (the reference's __main__)
-FULL_CALL_LOAD_PER_DEV = 512   # phase 20's LOAD test in the full call (cut
-                               # from the tool's 1024 reads an entry)
+FULL_CALL_LOAD_PER_DEV = 256   # phase 20's LOAD test in the full call (cut
+                               # from the tool's 1024 reads an entry; 512
+                               # before phase 27)
 
 
 def bench_phase(card: str, timed: int = None, batch: int = None) -> dict:
@@ -3014,8 +3050,10 @@ def pe_window_phase(card: str) -> dict:
 OPTION_SE_READS = 4096      # phase 23's SE batch at each set (options call)
 OPTION_PE_PAIRS = 2048      # ... and its PE batch, in pairs
 FULL_CALL_OPTION_SETS = ("scaled2", "pacbio")   # (b) in the full call
-FULL_CALL_OPTION_SE_READS = 1024                # ... its SE batch
-FULL_CALL_OPTION_PE_PAIRS = 512                 # ... and PE pairs
+FULL_CALL_OPTION_SE_READS = 512     # ... its SE batch (1024 before phase 27)
+FULL_CALL_OPTION_PE_PAIRS = 256     # ... and PE pairs (512 before phase 27)
+OPTION_CLI_PAIRS = 512      # (c): the command line's pairs (the batch's, if
+#                             fewer)
 
 
 def option_sweeps(names, card: str, short: bool = False) -> dict:
@@ -3097,11 +3135,13 @@ class kernel_calls:
     ("K1", instance), ("K2 fwd", instance) and ("K2 rev", instance) to
     launches, ``first`` to that key's first call's inputs and, on the
     card, ``events`` to a pair of CUDA events around each launch
-    (``kernel_ms``); the rescue calls' (Q, T) go to ``k2_shapes``, and
+    (``kernel_ms``); the rescue calls' (Q, T) are ``k2_shapes``, and
     the generic K2 launches whose window T is 2048 or more to ``wide``,
     the forward ones also to ("K2 fwd wide", 0) in ``counts`` and
-    ``first``. With ``by_width`` K1's launches are also logged by query
-    width: ``q_counts``, ``q_first`` and ``q_events`` (``width_ms``)."""
+    ``first``; K2's launches are also logged by (pass, Q, T):
+    ``k2_by_shape``, ``k2_first`` and ``k2_events`` (``k2_shape_ms``).
+    With ``by_width`` K1's launches are also logged by query width:
+    ``q_counts``, ``q_first`` and ``q_events`` (``width_ms``)."""
 
     def __init__(self, by_width: bool = False):
         self.by_width = by_width
@@ -3114,7 +3154,8 @@ class kernel_calls:
         self.real = worker.ksw_extend, rescue.ksw_local
         real1, real2 = self.real
         self.counts, self.first, self.events = {}, {}, {}
-        self.k2_shapes, self.wide = set(), 0
+        self.wide = 0
+        self.k2_by_shape, self.k2_first, self.k2_events = {}, {}, {}
         self.q_counts, self.q_first, self.q_events = {}, {}, {}
 
         def run(key, args, fn):
@@ -3148,17 +3189,25 @@ class kernel_calls:
         def k2(*args, want_sub, **kw):
             Q, T = args[0].shape[1], args[2].shape[1]
             inst = sw_local.kernel_instance(Q)
-            if args[0].shape[0]:
-                self.k2_shapes.add((Q, T))
-                if inst == 0 and T >= 2048:
-                    self.wide += 1
-                    if want_sub:
-                        w = ("K2 fwd wide", 0)
-                        self.counts[w] = self.counts.get(w, 0) + 1
-                        self.first.setdefault(w, tuple(a.clone()
-                                                       for a in args))
-            return run(("K2 fwd" if want_sub else "K2 rev", inst), args,
-                       lambda: real2(*args, want_sub=want_sub, **kw))
+            key = ("K2 fwd" if want_sub else "K2 rev", inst)
+            if not args[0].shape[0]:
+                return run(key, args, lambda: real2(*args, want_sub=want_sub,
+                                                    **kw))
+            if inst == 0 and T >= 2048:
+                self.wide += 1
+                if want_sub:
+                    w = ("K2 fwd wide", 0)
+                    self.counts[w] = self.counts.get(w, 0) + 1
+                    self.first.setdefault(w, tuple(a.clone() for a in args))
+            sk = ("forward" if want_sub else "reverse", Q, T)
+            self.k2_by_shape[sk] = self.k2_by_shape.get(sk, 0) + 1
+            self.k2_first.setdefault(sk, tuple(a.clone() for a in args))
+            out = run(key, args, lambda: real2(*args, want_sub=want_sub,
+                                               **kw))
+            if args[0].is_cuda:
+                self.k2_events.setdefault(sk, []).append(
+                    self.events[key][-1])
+            return out
         worker.ksw_extend, rescue.ksw_local = k1, k2
         return self
 
@@ -3167,6 +3216,11 @@ class kernel_calls:
         from tpubwa_torch.pair import rescue
         worker.ksw_extend, rescue.ksw_local = self.real
         return False
+
+    @property
+    def k2_shapes(self) -> set:
+        """The (Q, T) of the K2 launches."""
+        return {(q, t) for _, q, t in self.k2_by_shape}
 
     def by(self, kernel: str) -> dict:
         """Launches of ``kernel`` ("K1", "K2 fwd", "K2 rev") by instance
@@ -3194,6 +3248,14 @@ class kernel_calls:
             torch.cuda.synchronize()
         return {q: sum(a.elapsed_time(b) for a, b in evs)
                 for q, evs in sorted(self.q_events.items())}
+
+    def k2_shape_ms(self) -> dict:
+        """Device ms of K2's launches by (pass, Q, T)."""
+        import torch
+        if self.k2_events:
+            torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in evs)
+                for k, evs in sorted(self.k2_events.items())}
 
     def first_call(self, kernel: str):
         """The inputs of ``kernel``'s first launch ("K1", "K2 fwd"), of
@@ -3255,15 +3317,15 @@ def held_run(aln, path: str, batch, what: str, card: str,
 
 def option_cli(aln, recs, card: str) -> dict:
     """Phase 23 (c): `python -m tpubwa_torch align idx r_1.fq r_2.fq
-    --platform cuda` with the scaled2 flags on the first 512 pairs of
-    ``recs`` (interleaved): the file byte-equal to the header +
+    --platform cuda` with the scaled2 flags on the first OPTION_CLI_PAIRS
+    pairs of ``recs`` (interleaved): the file byte-equal to the header +
     Oracle.align_pe under the same options (``aln``, the scaled2 aligner
     of (b)), K1 and K2 launched."""
     from tpubwa_torch.io import fastx
     from tpubwa_torch.tools import bench_world
     from tpubwa_torch.tools.option_sets import SETS
     d = smoke_dir()
-    pe = recs[:2 * FULL_CALL_OPTION_PE_PAIRS]
+    pe = recs[:2 * OPTION_CLI_PAIRS]
     fastx.write_fastq(d / "o_1.fq", pe[0::2])
     fastx.write_fastq(d / "o_2.fq", pe[1::2])
     pe = [r for m in zip(fastx.iter_fastq(d / "o_1.fq"),
@@ -3602,7 +3664,6 @@ LONG_PE_STREAM_PAIRS = 512  # (f): the stream's third batch (2x250)
 LONG_PE_CLI_PAIRS = 512     # (g): the command line's 2x300 pairs
 FULL_CALL_LONG_PE = 256     # the full call: (b) and (d) at 256 pairs ...
 FULL_CALL_LONG_PE_RESCUE = 16   # ... and 16 rescue pairs beside (d)'s
-SMEM_48K = 48 * 1024        # the default limit of dynamic shared memory
 
 
 def long_pe_run(aln, label: str, batch, card: str, path: str = "PE") -> dict:
@@ -3620,13 +3681,12 @@ def long_pe_run(aln, label: str, batch, card: str, path: str = "PE") -> dict:
         raise AssertionError(f"long PE {label}: the logged launches "
                              f"{calls.counts} are not the wrappers' K1 "
                              f"{r['k1']} and K2 {r['k2']}")
-    smem = sorted({sw_local.smem_bytes(q, t, True)
-                   for q, t in calls.k2_shapes})
+    smem = sorted({sw_local.smem_bytes(q) for q, _ in calls.k2_shapes})
     ms = calls.kernel_ms()
     print(f"long PE {label}: K1 launches by instance {calls.by('K1')}; K2 "
           f"forward {calls.by('K2 fwd')}, reverse {calls.by('K2 rev')}; "
-          f"rescue calls' (Q, T) {sorted(calls.k2_shapes)}, forward shared "
-          f"memory a block {smem} bytes; {calls.wide} generic K2 launches "
+          f"rescue calls' (Q, T) {sorted(calls.k2_shapes)}, shared memory "
+          f"a block {smem} bytes; {calls.wide} generic K2 launches "
           f"at T >= 2048; kernel device ms by instance "
           f"{ {k: round(v, 3) for k, v in ms.items()} }, "
           f"{sum(ms.values()):.3f} ms in all, "
@@ -3684,7 +3744,7 @@ LONG_PE_LABELS = {"a": "(a) 2x250", "b": "(b) 2x300",
 def long_pe_checks(runs: dict):
     """Phase 25's launch checks: K1's generic instance on (b), (c) and
     (e); K2's generic instance forward and reverse on (b); a generic K2
-    launch at T >= 2048 above 48 KB of shared memory on (d); at 2x250 (a)
+    launch at T >= 2048 on (d); at 2x250 (a)
     the K=8 register instances of K1 and of K2 (both passes). Checks what
     ran: the full call runs (b) and (d) alone."""
     from tpubwa_torch.ops import sw_local
@@ -3695,11 +3755,8 @@ def long_pe_checks(runs: dict):
         ("a", ("K2 fwd", 8)), ("a", ("K2 rev", 8))) if k in c]
     bad = [f"{LONG_PE_LABELS[k]} {key[0]} {instance_name(key[1])}"
            for k, key in need if not c[k].get(key)]
-    d = runs["d"]["calls"]
-    if not d.wide or max(sw_local.smem_bytes(q, t, True)
-                         for q, t in d.k2_shapes) <= SMEM_48K:
-        bad.append(f"{LONG_PE_LABELS['d']} K2 generic at T >= 2048 above "
-                   "48 KB")
+    if not runs["d"]["calls"].wide:
+        bad.append(f"{LONG_PE_LABELS['d']} K2 generic at T >= 2048")
     if bad:
         raise AssertionError("phase 25 launched no " + "; no ".join(bad))
 
@@ -3862,7 +3919,8 @@ LONG_SE_LABELS = {"a": "(a) 4096 bp hifi",
                   "d": "(d) 12288 bp hifi",
                   "e": "(e) 32768 bp hifi (the packed row's widest query)"}
 LONG_SE_CLI = 128           # the command line's reads of (b)
-FULL_CALL_LONG_SE = 64      # the full call: (a) alone, at 64 reads
+FULL_CALL_LONG_SE = 32      # the full call: (a) alone, at 32 reads (64
+#                             before phase 27's piece)
 LONG_SE_WIDTHS = (4096, 8192, 12288, 32768)   # K1's entries, by Q
 LONG_SE_FULL_TASKS = 8      # K1's entry at Q = 32768: full-width tasks
 # the packed row's fields that a long read can pass (pipeline.py::_pack)
@@ -4130,6 +4188,320 @@ def long_se_entries(runs: dict, card: str) -> list:
     return out
 
 
+# Phase 27: mate-pair libraries on the bench world (tools/mate_pairs.py).
+# Batch letter -> (pairs, read length, mate_pairs keywords, seed): (a) a
+# gel-selected library, (b) an unfractionated one with junction reads, (c)
+# the same at 2x300 (MiSeq v3), (d) bimodal inserts, whose RF window is
+# pestat's widest (T above 32 k); (a)-(c) with 15% FR contamination.
+MATE_PAIR = {
+    "a": (2048, 150, dict(profile="gel", mean=3000, sd=300, fr_share=0.15,
+                          rescue=64), 81),
+    "b": (2048, 150, dict(profile="unfractionated", fr_share=0.15,
+                          rescue=64, junction_share=0.05), 82),
+    "c": (1024, 300, dict(profile="unfractionated", fr_share=0.15,
+                          rescue=64), 83),
+    "d": (256, 150, dict(profile="bimodal", fr_share=0.0, rescue=32), 84)}
+MATE_PAIR_LABELS = {"a": "(a) 2x150 gel 3000 +- 300",
+                    "b": "(b) 2x150 unfractionated, junction reads",
+                    "c": "(c) 2x300 unfractionated",
+                    "d": "(d) 2x150 bimodal"}
+MATE_PAIR_CLI = 512         # the command line's pairs of (b), interleaved
+FULL_CALL_MATE_PAIR = 256   # the full call: (b) at 256 pairs ...
+FULL_CALL_MATE_PAIR_RESCUE = 16   # ... with 16 rescue pairs
+# K2's widest windows before the row maxima left shared memory, rounded
+# to the rescue's 256: the register instances' (any Q) and the generic
+# instance's at Q = 300
+OLD_K2_T = {150: 14336, 300: 13056}
+WIDE_K2_T = 40960           # past pestat's widest window at max_ins
+WIDE_K2_TASKS = 16          # tasks of the T = 40,960 entries
+BIMODAL_T = 32768           # (d)'s window passes it
+
+
+def mate_pair_batches(idx, full: bool) -> dict:
+    """Phase 27's batches by letter: (pairs, read length, ReadBatch,
+    records); with ``full`` (the full call) only (b), at
+    FULL_CALL_MATE_PAIR pairs."""
+    import numpy as np
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import mate_pairs
+    fwd = idx.get_seq(0, idx.l_pac).astype(np.uint8)
+    out = {}
+    for k, (n, L, kw, seed) in MATE_PAIR.items():
+        if full and k != "b":
+            continue
+        if full:
+            n, kw = FULL_CALL_MATE_PAIR, dict(
+                kw, rescue=FULL_CALL_MATE_PAIR_RESCUE)
+        recs = mate_pairs.mate_pairs(fwd, n, L, seed, **kw)
+        out[k] = (n, L, fastx.batch_reads(recs, max_len=L), recs)
+    return out
+
+
+def pestat_line(pes) -> str:
+    return "; ".join(f"{r['orientation']} low {r['low']} high {r['high']} "
+                     f"failed {r['failed']} (n {r['n']})" for r in pes)
+
+
+def mate_pair_run(aln, label: str, batch, card: str) -> dict:
+    """Phase 27 on one batch: held_run (align_pe, byte-equal to the
+    oracle, no rescue result missing) with every launch logged
+    (kernel_calls) and the insert histogram kept; prints the properly
+    paired share of the records, pestat's low, high and failed for each
+    orientation (tools/mate_pairs.py's mirror of native/pe.cpp), the
+    rescue calls' T, K2's launches and device ms by (pass, Q, T) and
+    K1's. Returns the numbers, the SAM and the log."""
+    from tpubwa_torch.tools import mate_pairs
+    hists = []
+    real = aln._pe_hist
+
+    def keep(ctx):
+        hists.append(real(ctx))
+        return hists[-1]
+    aln._pe_hist = keep
+    try:
+        with kernel_calls() as calls:
+            r = held_run(aln, "PE", batch, f"mate pair {label}", card)
+    finally:
+        del aln._pe_hist
+    if (calls.total("K1"), calls.total("K2 fwd", "K2 rev")) != \
+            (r["k1"], r["k2"]):
+        raise AssertionError(f"mate pair {label}: the logged launches "
+                             f"{calls.counts} are not the wrappers' K1 "
+                             f"{r['k1']} and K2 {r['k2']}")
+    flags = [int(l.split("\t", 2)[1]) for l in r["sam"].splitlines()]
+    proper = sum(f & 0x2 != 0 for f in flags) / max(len(flags), 1)
+    supp = sum(f & 0x800 != 0 for f in flags)
+    pes = mate_pairs.pestat(hists[0], aln.opt.max_ins)
+    ms, k2ms = calls.kernel_ms(), calls.k2_shape_ms()
+    k1ms = sum(v for k, v in ms.items() if k.startswith("K1"))
+    k2 = {f"{p} Q={q} T={t}": (n, round(k2ms.get((p, q, t), 0.0), 3))
+          for (p, q, t), n in sorted(calls.k2_by_shape.items())}
+    Ts = sorted({t for _, t in calls.k2_shapes})
+    print(f"mate pair {label}: {r['reads_per_s']:.1f} reads/s, fallback "
+          f"share {r['fallback']:.5f}, tier1 overflow {r['tier1_ovf']}; "
+          f"rescue tasks {r['rescue_tasks']}; properly paired "
+          f"{proper:.4f} of {len(flags)} records, {supp} supplementary; "
+          f"pestat {pestat_line(pes)}; rescue T {Ts}; K2 (launches, device "
+          f"ms) by pass and shape {k2}; K1 {calls.total('K1')} launches "
+          f"{calls.by('K1')}, {k1ms:.3f} device ms [{card}]", flush=True)
+    r.update(calls=calls, pestat=pes, proper=proper, supp=supp, T=Ts,
+             k2_shape=k2)
+    return r
+
+
+def mate_pair_checks(runs: dict, batches: dict):
+    """Phase 27's checks on what ran: RF live in pestat in every batch and
+    FR in those with contamination; K2 forward and reverse launched in
+    every batch; (b) at K=5 past OLD_K2_T[150], (c) in the generic
+    instance past OLD_K2_T[300], (d) past BIMODAL_T."""
+    from tpubwa_torch.ops import sw_local
+    bad = []
+    for k, r in runs.items():
+        c = r["calls"]
+        live = {p["orientation"] for p in r["pestat"] if not p["failed"]}
+        fr = MATE_PAIR[k][2]["fr_share"] > 0
+        if "RF" not in live or fr != ("FR" in live):
+            bad.append(f"{MATE_PAIR_LABELS[k]}: live orientations {live}")
+        if not (c.total("K2 fwd") and c.total("K2 rev")):
+            bad.append(f"{MATE_PAIR_LABELS[k]}: K2 forward {c.by('K2 fwd')}"
+                       f", reverse {c.by('K2 rev')}")
+        L = batches[k][1]
+        need = {"b": (5, OLD_K2_T[150]), "c": (0, OLD_K2_T[300]),
+                "d": (5, BIMODAL_T)}.get(k)
+        if need and not any(
+                p == "forward" and t > need[1]
+                and sw_local.kernel_instance(q) == need[0]
+                for p, q, t in c.k2_by_shape):
+            bad.append(f"{MATE_PAIR_LABELS[k]}: no K2 forward call of "
+                       f"instance {instance_name(need[0])} past T = "
+                       f"{need[1]} at Q = {L} ({sorted(c.k2_by_shape)})")
+    if bad:
+        raise AssertionError("phase 27: " + "; ".join(bad))
+
+
+def mate_pair_stream(aln, batches: dict, runs: dict, card: str) -> dict:
+    """Phase 27's stream: align_pe_stream over (a) and (b), each numbered
+    from pair 0, kernel counts set to 0 just before and read just after:
+    each batch's SAM byte-equal to its align_pe run, which the oracle
+    held; no rescue result missing; K1 and K2 launched."""
+    import torch
+    from tpubwa_torch.ops import sw, sw_local
+    order = [batches[k][2] for k in "ab"]
+    lib = aln.oracle._lib
+    lib.tb_rescue_miss_reset()
+    torch.cuda.synchronize()
+    sw.ksw_extend.launches = sw_local.ksw_local.launches = 0
+    t0 = time.perf_counter()
+    got = list(aln.align_pe_stream([(b, 0) for b in order]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1, k2 = sw.ksw_extend.launches, sw_local.ksw_local.launches
+    misses = lib.tb_rescue_miss_count()
+    for k, g in zip("ab", got):
+        first_diff(g, runs[k]["sam"], f"phase 27 stream batch ({k}) against "
+                   "its align_pe run")
+    n = sum(b.n for b in order)
+    print(f"mate pair stream (a), (b) ({n} reads): every batch byte-equal "
+          f"to align_pe and the oracle in {dt:.3f} s ({n / dt:.1f} "
+          f"reads/s); rescue results missing {misses}; K1 launches {k1}, "
+          f"K2 {k2} [{card}]", flush=True)
+    if misses or k1 <= 0 or k2 <= 0:
+        raise AssertionError(f"phase 27 stream: {misses} rescue results "
+                             f"missing, K1 {k1}, K2 {k2} launches")
+    return dict(s=dt, reads_per_s=n / dt, k1=k1, k2=k2)
+
+
+def mate_pair_cli(aln, recs, card: str) -> dict:
+    """Phase 27's command line: `python -m tpubwa_torch align idx mp.fq
+    -p --platform cuda` on the first MATE_PAIR_CLI pairs of (b) in one
+    interleaved FASTQ: the header's @SQ lines the index's contigs, the
+    file byte-equal to the header + Oracle.align_pe, K1 and K2
+    launched."""
+    from tpubwa_torch.io import fastx
+    from tpubwa_torch.tools import bench_world
+    d = smoke_dir()
+    fastx.write_fastq(d / "mp.fq", recs[:2 * MATE_PAIR_CLI])
+    pe = list(fastx.iter_fastq(d / "mp.fq"))
+    header = aln.sam_header()
+    sq = [l for l in header.splitlines() if l.startswith("@SQ")]
+    if sq != [f"@SQ\tSN:{a.name}\tLN:{a.length}" for a in aln.idx.anns]:
+        raise AssertionError(f"phase 27 CLI: the header's @SQ lines {sq} "
+                             "are not the index's contigs")
+    want = header + aln.oracle.align_pe(
+        fastx.batch_reads(pe, max_len=PE_READ_LEN), aln.opt, id0=0)[0]
+    t0 = time.time()
+    err = run_cli(["align", str(bench_world.BUILD /
+                                f"smoke_index_{GENOME_LEN}.npz"),
+                   str(d / "mp.fq"), "-p", "-o", str(d / "mp.sam"),
+                   "--platform", DEVICE, "--batch-size", str(len(pe))],
+                  "CLI PE, mate pairs")
+    wall = time.time() - t0
+    first_diff((d / "mp.sam").read_text(), want, "CLI PE SAM of mate pairs "
+               "against the header + Oracle.align_pe")
+    k1, k2 = cli_launches(err)
+    print(f"mate pair CLI -p: {len(pe) // 2} pairs of (b), {len(sq)} @SQ "
+          f"line(s) the index's, whole file byte-equal to the header + "
+          f"Oracle.align_pe; the CLI says: {cli_line(err, 'total')}; "
+          f"process wall {wall:.1f} s; K1 launches {k1}, K2 launches {k2} "
+          f"[{card}]", flush=True)
+    if k1 <= 0 or k2 <= 0:
+        raise AssertionError(f"the CLI on mate pairs launched K1 {k1} and "
+                             f"K2 {k2} times")
+    return dict(wall=wall, k1=k1, k2=k2)
+
+
+def wide_k2_tasks(n: int, Q: int, T: int, seed: int) -> tuple:
+    """n K2 tasks on the card of query width Q and a full target of T
+    bases: the query planted near the target's end with 2 errors and
+    again far before it with 6 (a second run outside [te - qlen, te +
+    qlen], so score2 and te2 are live), the rescue's minimum score."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    qs = rng.integers(0, 4, (n, Q)).astype(np.int32)
+    ts = rng.integers(0, 4, (n, T)).astype(np.int32)
+    for i in range(n):
+        for off, nerr in ((int(rng.integers(T - 3 * Q, T - Q)), 2),
+                          (int(rng.integers(Q, T // 2)), 6)):
+            hit = qs[i].copy()
+            pos = rng.choice(Q, nerr, replace=False)
+            hit[pos] = (hit[pos] + 1) % 4
+            ts[i, off:off + Q] = hit
+    c = lambda a: torch.as_tensor(a, dtype=torch.int32).to(DEVICE)  # noqa
+    return (c(qs), c([Q] * n), c(ts), c([T] * n), c([19] * n), c([1] * n))
+
+
+def mate_pair_phase(card: str, aln=None, full: bool = False) -> dict:
+    """Phase 27: mate-pair libraries on the card (the bench world,
+    Aligner(idx, device="cuda")). Without ``full``: first K2 on
+    WIDE_K2_TASKS tasks at T = 40,960 (wide_entries), then (a)-(d) of
+    mate_pair_batches through mate_pair_run, mate_pair_checks, the stream
+    of (a) and (b) and the command line on (b); with ``full`` (b) at
+    FULL_CALL_MATE_PAIR pairs and its checks. Returns the runs."""
+    t0 = time.time()
+    wide = [] if full else wide_entries(card)
+    if aln is None:
+        aln = make_aligner()
+    batches = mate_pair_batches(aln.idx, full)
+    runs = {k: mate_pair_run(aln, MATE_PAIR_LABELS[k], b[2], card)
+            for k, b in batches.items()}
+    mate_pair_checks(runs, batches)
+    if not full:
+        runs["stream"] = mate_pair_stream(aln, batches, runs, card)
+        runs["cli"] = mate_pair_cli(aln, batches["b"][3], card)
+    for r in runs.values():
+        r.pop("sam", None)
+    # the T = 40,960 entries count the phase's launches past BIMODAL_T
+    runs["wide"] = [e[:4] + (sum(
+        n for r in runs.values() if "calls" in r
+        for (p, _, t), n in r["calls"].k2_by_shape.items()
+        if p == ("forward" if e[6] else "reverse") and t > BIMODAL_T),
+        e[5]) for e in wide]
+    print(f"phase 27 took {time.time() - t0:.1f} s [{card}]", flush=True)
+    return runs
+
+
+def wide_entries(card: str) -> list:
+    """K2 on WIDE_K2_TASKS tasks at T = 40,960 (wide_k2_tasks): the
+    forward pass at Q = 150 (K=5) and Q = 300 (generic), the reverse pass
+    at Q = 150 on the prefixes the forward results give, each held to its
+    plain version (timed once) and timed beside its bound. Each entry
+    carries its want_sub last; its launches are filled in later."""
+    from tpubwa_torch.ops import sw_local
+    out = []
+    for Q, want_sub, name in ((150, True, "ksw_local_t40960"),
+                              (300, True, "ksw_local_t40960_q300"),
+                              (150, False, "ksw_local_t40960_rev")):
+        args = wide_k2_tasks(WIDE_K2_TASKS, Q, WIDE_K2_T, 270 + Q)
+        if not want_sub:
+            args = reverse_pass_args(args, sw_local.ksw_local(
+                *args, want_sub=True, **SCORING))
+        p = "forward" if want_sub else "reverse"
+        out.append(k2_entry(
+            name, f"{p} pass at Q={Q}, T={WIDE_K2_T} on {WIDE_K2_TASKS} "
+            f"tasks, {instance_name(sw_local.kernel_instance(Q))} (phase "
+            f"27; launches: the phase's {p} calls past T={BIMODAL_T})",
+            args, 0, card, want_sub=want_sub) + (want_sub,))
+    return out
+
+
+def mate_pair_entries(runs: dict, card: str) -> list:
+    """Phase 6 for phase 27: K2's first forward call on (b) (Q = 150, K=5)
+    and on (c) (Q = 300, generic) at the batch's widest T, each held to
+    its plain version (timed once) and timed beside its bound, with the
+    batch's K2 forward launches at that Q; then the T = 40,960 entries of
+    wide_entries, if they ran."""
+    from tpubwa_torch.ops import sw_local
+    out = []
+    for k, name in (("b", "ksw_local_mp150"), ("c", "ksw_local_mp300")):
+        if k not in runs:
+            continue
+        c = runs[k]["calls"]
+        sk = max((s for s in c.k2_by_shape if s[0] == "forward"),
+                 key=lambda s: s[2])
+        n_l = sum(n for s, n in c.k2_by_shape.items()
+                  if s[0] == "forward" and s[1] == sk[1])
+        out.append(k2_entry(
+            name, f"PE mate pairs {MATE_PAIR_LABELS[k]}, forward pass at "
+            f"T={sk[2]}, {instance_name(sw_local.kernel_instance(sk[1]))} "
+            f"(phase 27)", c.k2_first[sk], n_l, card))
+    return out + runs["wide"]
+
+
+def reverse_pass_args(args, fwd) -> tuple:
+    """ksw_align_batch's reverse-pass inputs from the forward results: the
+    reversed (qe, te) prefixes, qe + 1 and te + 1 long."""
+    import torch
+    from tpubwa_torch.pair.rescue import _rev_prefix
+    q, _, t, _, minsc, valid = args
+    score, te, qe = fwd[:, 0], fwd[:, 1], fwd[:, 2]
+    need = (valid != 0) & (score >= minsc) & (te >= 0)
+    rq = _rev_prefix(q, torch.where(need, qe, 0)).contiguous()
+    rt = _rev_prefix(t, torch.where(need, te, 0)).contiguous()
+    return (rq, (qe + 1).to(torch.int32), rt, (te + 1).to(torch.int32),
+            torch.full_like(minsc, 0x10000), need.to(torch.int32))
+
+
 def full_width_tasks(Q: int, n: int, seed: int) -> tuple:
     """n K1 tasks of width Q on the card that extend over the whole width:
     a random target of Q + 200 bases, a query cut from it under
@@ -4278,7 +4650,7 @@ def main() -> int:
     # phases 1-2
     bprep = start_bench_prepare() \
         if sys.argv[1:] in ([], ["pe_window"], ["options"], ["contigs"],
-                            ["long_pe"], ["long_se"]) \
+                            ["long_pe"], ["long_se"], ["mate_pair"]) \
         else None
     atexit.register(stop, bprep)
     timed_phase("1 (build)", build)
@@ -4386,6 +4758,16 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": device,
                           "phases": "build and phase 26 only"}))
         return 0
+    if sys.argv[1:] == ["mate_pair"]:
+        wait_prepare(bprep, "bench world prepare", card)
+        mpr = timed_phase("27 (mate pairs)", mate_pair_phase, card)
+        print(json.dumps({"kernels": [kernel_entry(*e[:5], 0, e[5])
+                                      for e in mate_pair_entries(mpr, card)]}))
+        print(f"{card}")
+        print(f"whole call: {time.time() - t_call:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": device,
+                          "phases": "build and phase 27 only"}))
+        return 0
     if sys.argv[1:] == ["pe_window"]:
         wait_prepare(bprep, "bench world prepare", card)
         timed_phase("22 (PE window)", pe_window_phase, card)
@@ -4445,6 +4827,8 @@ def main() -> int:
     lpe = timed_phase("25 (long PE)", long_pe_phase, card, aln, True)
     # phase 26's short piece, also before the 64 Mbp build process starts
     lse = timed_phase("26 (long SE)", long_se_phase, card, aln, True)
+    # phase 27's short piece, also before the 64 Mbp build process starts
+    mpr = timed_phase("27 (mate pairs)", mate_pair_phase, card, aln, True)
     # the 64 Mbp caches (and phase 20's 2 Mbp ones) build on the host
     # while phases 7-14 run
     prep = start_scale_prepare()
@@ -4513,7 +4897,8 @@ def main() -> int:
     new = new_path_entries(longr, i64, scale, card) + \
         [diag_entry(diag, card)] + profile_entries(prof, card) + \
         [dryrun_entry(dry, card)] + contig_entries(ctg, card) + \
-        long_pe_entries(lpe, card) + long_se_entries(lse, card)
+        long_pe_entries(lpe, card) + long_se_entries(lse, card) + \
+        mate_pair_entries(mpr, card)
     opt_kernels = option_kernels(opts, FULL_CALL_OPTION_SETS, card)
     print(f"phase 6 (kernels): {time.time() - t6:.1f} s", flush=True)
     # one entry per kernel and path: K1 on the SE and the PE path (other
@@ -4521,8 +4906,8 @@ def main() -> int:
     # the later slices' paths: K1 on the long, int64 and 64 Mbp paths, K2
     # on the 64 Mbp PE row, K1 in phase 16, K1 and K2 in phase 17, K1 in
     # phase 20, K1 and K2 in phase 24, K1 and K2 (both passes, and at
-    # T >= 2048) at 2x300 in phase 25, K1 at Q = 4096 in phase 26 (then
-    # phase 23's)
+    # T >= 2048) at 2x300 in phase 25, K1 at Q = 4096 in phase 26, K2 at
+    # Q = 150 past T = 14,336 in phase 27 (then phase 23's)
     kernels = [
         kernel_entry("ksw_extend", "SE", "ksw_extend.cu", 86, launches,
                      worst, r1["SE"]),

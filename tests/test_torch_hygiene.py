@@ -39,7 +39,8 @@ def test_import_pulls_in_no_jax_and_no_tpubwa():
             "tpubwa_torch.tools.option_sets, "
             "tpubwa_torch.tools.contig_layouts, "
             "tpubwa_torch.tools.long_pairs, "
-            "tpubwa_torch.tools.long_reads\n"
+            "tpubwa_torch.tools.long_reads, "
+            "tpubwa_torch.tools.mate_pairs\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpubwa.')) or m == 'tpubwa')\n"
             "print(bad)\n")

@@ -157,14 +157,15 @@ def test_wrapper_uses_plain_version_for_cpu_tensors_only():
 
 
 def test_shared_memory_budget():
-    # a register instance keeps only the T stored row maxima of want_sub;
-    # the largest production shape fits one block, an absurd one is refused
-    assert sw_local.smem_bytes(256, 1024, True) == 16 * 1024
-    assert sw_local.smem_bytes(256, 1024, False) == 0
-    # the generic instance adds four rows over the query
-    assert sw_local.smem_bytes(256, 1024, False, instance=0) == 16 * 1024
-    assert sw_local.smem_bytes(320, 1024, True) == 16 * 1024 + 20 * 1024
-    assert sw_local.smem_bytes(4096, 65536, True) > sw_local._SMEM_MAX
+    # a register instance keeps nothing in shared memory: the row maxima of
+    # want_sub go to a device-memory workspace of T ints a task
+    assert sw_local.smem_bytes(256) == 0
+    assert sw_local.workspace_bytes(100, 1024, True) == 100 * 1024 * 4
+    assert sw_local.workspace_bytes(100, 1024, False) == 0
+    # the generic instance keeps four rows over the query, whatever T
+    assert sw_local.smem_bytes(256, instance=0) == 16 * 1024
+    assert sw_local.smem_bytes(320) == 20 * 1024
+    assert sw_local.smem_bytes(4096) > sw_local._SMEM_MAX
 
 
 # query widths at and around the register instances' boundaries (multiples
@@ -215,17 +216,25 @@ def test_kernel_instance_follows_query_width(Q, instance):
 def test_launch_refuses_oversized_rows_and_cpu_tensors():
     args = [torch.tensor(np.asarray(a, np.int32)) for a in cases(2)]
     before = sw_local.ksw_local.launches
-    big = torch.zeros((len(args[1]), 65536), dtype=torch.int32)
+    n = len(args[1])
+    wide = torch.zeros((n, 65536), dtype=torch.int32)
+    # a view of MAX_T + 1 columns that allocates nothing
+    past = torch.zeros((n, 1), dtype=torch.int32).expand(
+        n, sw_local.MAX_T + 1)
     with pytest.raises(ValueError, match="unsupported device"):
         sw_local.launch_kernel(args, 4, want_sub=True, **KW)
-    with pytest.raises(ValueError, match="shared memory"):
-        sw_local.launch_kernel([args[0], args[1], big, *args[3:]], 4,
+    # the row maxima are in device memory: a wide target only meets the
+    # device check, in both passes
+    for want_sub in (True, False):
+        with pytest.raises(ValueError, match="unsupported device"):
+            sw_local.launch_kernel([args[0], args[1], wide, *args[3:]], 4,
+                                   want_sub=want_sub, **KW)
+    with pytest.raises(ValueError, match=f"T={sw_local.MAX_T + 1}"):
+        sw_local.launch_kernel([args[0], args[1], past, *args[3:]], 4,
                                want_sub=True, **KW)
-    # without want_sub a register instance stores nothing: only the device
-    # is wrong
-    with pytest.raises(ValueError, match="unsupported device"):
-        sw_local.launch_kernel([args[0], args[1], big, *args[3:]], 4,
-                               want_sub=False, **KW)
+    q = torch.zeros((n, 4096), dtype=torch.int32)
+    with pytest.raises(ValueError, match="Q=4096.*shared memory"):
+        sw_local.launch_kernel([q, *args[1:]], 0, want_sub=True, **KW)
     assert sw_local.ksw_local.launches == before
 
 
@@ -279,8 +288,8 @@ def test_kernel_wrapper_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError):
         sw_local.ksw_local(t[0].t(), *t[1:], want_sub=True, **KW)
     with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros((len(t[1]), 65536), dtype=torch.int32,
+        big = torch.zeros((len(t[1]), 4096), dtype=torch.int32,
                           device=cuda_device)
-        sw_local.ksw_local(t[0], t[1], big, *t[3:], want_sub=True, **KW)
+        sw_local.ksw_local(big, *t[1:], want_sub=True, **KW)
     with pytest.raises(RuntimeError, match="launch failed"):
         sw_local.launch_kernel(t, 1, want_sub=True, **KW)  # K = 1 < Q / 32

@@ -6,8 +6,8 @@ tests/test_torch_long_pe.py's 30 kbp world:
     shorter than a read, each read running into the TruSeq adapter),
     pairs trimmed to 36-300 bases an end, and rescue pairs;
   * a broad-insert library (650 +- 250) whose rescue window is over 1792
-    bases, so the rescue call's T is at least 2048 and the generic K2
-    instance needs more than 48 KB of shared memory a block;
+    bases, so the rescue call's T is at least 2048 in the generic K2
+    instance (whose row maxima are in a device-memory workspace);
   * align_pe_stream over batches of 2x250, 2x300 and 2x250 in turn;
 through Aligner(..., device="cpu"): SAM byte-equal to
 tpubwa.pipeline.Aligner and to the oracle, with equal stats and no rescue
@@ -108,6 +108,11 @@ def test_edge_pairs_equal_reference_and_oracle(world, widths):
 
 
 def test_wide_inserts_open_the_generic_rescue_above_48k(world, widths):
+    """A window T of 2048 or more in the generic instance. Its row maxima
+    once took T ints a task of shared memory, above 48 KB a block here;
+    they are in a device-memory workspace now, so the block's shared
+    memory is the query rows' alone and the workspace holds T ints a
+    task."""
     aln, jaln, fwd = world
     run_pe(aln, jaln, fastx.batch_reads(wide_records(fwd), max_len=L))
     assert aln.stats["rescue_tasks"] > 0
@@ -115,7 +120,8 @@ def test_wide_inserts_open_the_generic_rescue_above_48k(world, widths):
     assert instances(*widths)[1] == {True: {0}, False: {0}}
     fwd_calls = [(q, t) for q, t, s in k2 if s]
     assert fwd_calls and min(t for _, t in fwd_calls) >= 2048
-    assert all(sw_local.smem_bytes(q, t, True) > SMEM_48K
+    assert all(sw_local.smem_bytes(q) == sw_local.smem_bytes(L) < SMEM_48K
+               and sw_local.workspace_bytes(1, t, True) == 4 * t
                for q, t in fwd_calls)
 
 

@@ -47,10 +47,13 @@
 // i + 1 only read row i's H and E, so they are issued between row i's
 // reduction and the test that consumes it.
 // With want_sub the row maxima are gathered 32 rows at a time in a register
-// of lane i & 31 and written to shared memory as one coalesced store (T ints
-// a task, the only shared memory left); after the DP every lane replays the
-// run tracking over them (warp-uniform): it needs the final te, so it cannot
-// be folded into the DP loop.
+// of lane i & 31 and written to a global-memory workspace (T ints a task,
+// allocated by the wrapper) as one coalesced store; after the DP the warp
+// replays the run tracking over them (it needs the final te, so it cannot
+// be folded into the DP loop), reading them back 32 rows at a time, each
+// lane the rows it stored itself, and skipping a chunk in which no row
+// reaches minsc. No shared memory grows with T, so every rescue window
+// launches (pestat's widest at max_ins, about 40 kbp, included).
 //
 // Queries too long for the largest register instance (Q > 32 * kMaxK) take
 // the generic instance: the same function with H, E, G and the query in
@@ -67,30 +70,57 @@ constexpr int kMaxK = 8;       // largest register instance: Q <= 256
 // Run tracking over the stored row maxima [local_fwd's b list]: a run's
 // position is the row of its last max update, adjacency is tested against
 // that row, and a finished run counts only outside [te - qlen, te + qlen].
+// Warp-uniform: the rows come in 32 at a time, lane L reading row c + L,
+// which it stored itself (store_rowmax), and go through the tracking one
+// by one as shuffles; a row below minsc changes nothing, so a chunk with
+// none at minsc or above is skipped.
 __device__ __forceinline__ void replay_runs(const int *rowmax, int tn, int te,
-                                            int qlen, int minsc, int &score2,
-                                            int &te2) {
+                                            int qlen, int minsc, int lane,
+                                            int &score2, int &te2) {
   const int lo = te - qlen, hi = te + qlen;
   int bf = 0, bs = -2;
-  for (int i = 0; i < tn; ++i) {
-    const int im = rowmax[i];
-    if (im < minsc) continue;
-    if (bs + 1 != i) {
-      if (bs >= 0 && (bs < lo || bs > hi) && bf > score2) {
-        score2 = bf;
-        te2 = bs;
+  for (int c = 0; c < tn; c += 32) {
+    const int v = c + lane < tn ? rowmax[c + lane] : kNeg;
+    if (!__any_sync(kFull, v >= minsc)) continue;
+    const int n = min(32, tn - c);
+    for (int r = 0; r < n; ++r) {
+      const int im = __shfl_sync(kFull, v, r);
+      const int i = c + r;
+      if (im < minsc) continue;
+      if (bs + 1 != i) {
+        if (bs >= 0 && (bs < lo || bs > hi) && bf > score2) {
+          score2 = bf;
+          te2 = bs;
+        }
+        bf = im;
+        bs = i;
+      } else if (im > bf) {
+        bf = im;
+        bs = i;
       }
-      bf = im;
-      bs = i;
-    } else if (im > bf) {
-      bf = im;
-      bs = i;
     }
   }
   if (bs >= 0 && (bs < lo || bs > hi) && bf > score2) {
     score2 = bf;
     te2 = bs;
   }
+}
+
+// Keeps row i's maximum mm (warp-uniform) for the replay: lane i & 31
+// holds it in rm until the chunk of 32 rows is full, then the warp writes
+// the chunk to rowmax[i - 31 ..= i] in one coalesced store.
+__device__ __forceinline__ void store_rowmax(int *rowmax, int i, int lane,
+                                             int mm, int &rm) {
+  if (lane == (i & 31)) rm = mm;
+  if ((i & 31) == 31) rowmax[i - 31 + lane] = rm;
+}
+
+// After the row loop: the rows of the last, part chunk.
+__device__ __forceinline__ void flush_rowmax(int *rowmax, int tn, int lane,
+                                             int rm) {
+  const int base = tn & ~31;
+  if (base + lane < tn) rowmax[base + lane] = rm;
+  __syncwarp();
 }
 
 // The head of a row: the target base, the diagonal input of the lane's
@@ -125,14 +155,13 @@ __global__ void __launch_bounds__(32 * kWarps) ksw_local_reg_kernel(
     const int *__restrict__ query, const int *__restrict__ qlen_a,
     const int *__restrict__ target, const int *__restrict__ tlen_a,
     const int *__restrict__ minsc_a, const int *__restrict__ valid_a,
-    int *__restrict__ out, int N, int Q, int T, int o_del, int e_del,
-    int o_ins, int e_ins, int a, int b) {
-  extern __shared__ int smem[];
+    int *__restrict__ out, int *ws, int N, int Q, int T, int o_del,
+    int e_del, int o_ins, int e_ins, int a, int b) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int task = blockIdx.x * kWarps + warp;
   if (task >= N) return;  // warp-uniform
-  int *rowmax = smem + warp * T;                // [T], want_sub only
+  int *rowmax = kWantSub ? ws + (size_t)task * T : nullptr;  // [T]
 
   const int qlen = qlen_a[task], tlen = tlen_a[task];
   const int qn = min(max(qlen, 0), Q);          // columns really aligned
@@ -195,18 +224,13 @@ __global__ void __launch_bounds__(32 * kWarps) ksw_local_reg_kernel(
         if (k < nk && H[k] == mm) lj = c0 + k;
       qe = warp_min(lj);
     }
-    if (kWantSub) {
-      if (lane == (i & 31)) rm = mm;
-      if ((i & 31) == 31) rowmax[i - 31 + lane] = rm;
-    }
+    if (kWantSub) store_rowmax(rowmax, i, lane, mm, rm);
   }
 
   int score2 = 0, te2 = -1;
   if (kWantSub) {
-    const int base = tn & ~31;                  // rows of the last, part chunk
-    if (base + lane < tn) rowmax[base + lane] = rm;
-    __syncwarp();
-    replay_runs(rowmax, tn, te, qlen, minsc_a[task], score2, te2);
+    flush_rowmax(rowmax, tn, lane, rm);
+    replay_runs(rowmax, tn, te, qlen, minsc_a[task], lane, score2, te2);
   }
 
   if (lane == 0) {
@@ -223,14 +247,15 @@ __global__ void __launch_bounds__(32 * kWarps) ksw_local_reg_kernel(
 // lane keeps its chunk of the query codes and of the H, E and G rows in
 // shared memory at slot k*32 + lane (only it touches them: no bank
 // conflicts, no barrier in the row loop); two passes a cell, butterfly
-// reductions, lane 0 stores every row maximum.
+// reductions; the row maxima go to the workspace as in the register
+// instances.
 template <bool kWantSub>
 __global__ void ksw_local_generic_kernel(
     const int *__restrict__ query, const int *__restrict__ qlen_a,
     const int *__restrict__ target, const int *__restrict__ tlen_a,
     const int *__restrict__ minsc_a, const int *__restrict__ valid_a,
-    int *__restrict__ out, int N, int Q, int T, int o_del, int e_del,
-    int o_ins, int e_ins, int a, int b) {
+    int *__restrict__ out, int *ws, int N, int Q, int T, int o_del,
+    int e_del, int o_ins, int e_ins, int a, int b) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -238,12 +263,11 @@ __global__ void ksw_local_generic_kernel(
   if (task >= N) return;  // warp-uniform
 
   const int KQ = (Q + 31) / 32;                 // slots per lane at full Q
-  const int per_warp = 4 * 32 * KQ + (kWantSub ? T : 0);
-  int *sq = smem + warp * per_warp;             // query codes
+  int *sq = smem + warp * 4 * 32 * KQ;          // query codes
   int *sh = sq + 32 * KQ;                       // H(i-1, .) then H(i, .)
   int *se = sh + 32 * KQ;                       // E
   int *sg = se + 32 * KQ;                       // G of the current row
-  int *rowmax = sg + 32 * KQ;                   // [T], want_sub only
+  int *rowmax = kWantSub ? ws + (size_t)task * T : nullptr;  // [T]
 
   const int qlen = qlen_a[task], tlen = tlen_a[task];
   const int qn = min(max(qlen, 0), Q);          // columns really aligned
@@ -264,6 +288,7 @@ __global__ void ksw_local_generic_kernel(
   int best = 0, te = -1, qe = -1;
   int hlast = 0;     // H(i-1, c0+K-1): the next lane's diagonal input
   int tchunk = 4;
+  int rm = 0;        // row maximum of row (i & ~31) + lane, want_sub only
   for (int i = 0; i < tn; ++i) {
     if ((i & 31) == 0) tchunk = i + lane < tn ? clamp_code(trow[i + lane]) : 4;
     const int tc = __shfl_sync(kFull, tchunk, i & 31);
@@ -311,13 +336,13 @@ __global__ void ksw_local_generic_kernel(
       te = i;
       qe = warp_min_xor(lm == mm ? lj : INT_MAX);
     }
-    if (kWantSub && lane == 0) rowmax[i] = mm;
+    if (kWantSub) store_rowmax(rowmax, i, lane, mm, rm);
   }
 
   int score2 = 0, te2 = -1;
   if (kWantSub) {
-    __syncwarp();
-    replay_runs(rowmax, tn, te, qlen, minsc_a[task], score2, te2);
+    flush_rowmax(rowmax, tn, lane, rm);
+    replay_runs(rowmax, tn, te, qlen, minsc_a[task], lane, score2, te2);
   }
 
   if (lane == 0) {
@@ -333,30 +358,23 @@ __global__ void ksw_local_generic_kernel(
 template <int K, bool kWantSub>
 int launch_reg(const int *query, const int *qlen, const int *target,
                const int *tlen, const int *minsc, const int *valid, int *out,
-               int N, int Q, int T, int o_del, int e_del, int o_ins,
+               int *ws, int N, int Q, int T, int o_del, int e_del, int o_ins,
                int e_ins, int a, int b, cudaStream_t stream) {
-  const size_t smem = kWantSub ? (size_t)kWarps * T * sizeof(int) : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ksw_local_reg_kernel<K, kWantSub>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const int blocks = (N + kWarps - 1) / kWarps;
-  ksw_local_reg_kernel<K, kWantSub><<<blocks, 32 * kWarps, smem, stream>>>(
-      query, qlen, target, tlen, minsc, valid, out, N, Q, T, o_del, e_del,
-      o_ins, e_ins, a, b);
+  ksw_local_reg_kernel<K, kWantSub><<<blocks, 32 * kWarps, 0, stream>>>(
+      query, qlen, target, tlen, minsc, valid, out, ws, N, Q, T, o_del,
+      e_del, o_ins, e_ins, a, b);
   return (int)cudaGetLastError();
 }
 
 template <bool kWantSub>
 int launch_generic(const int *query, const int *qlen, const int *target,
                    const int *tlen, const int *minsc, const int *valid,
-                   int *out, int N, int Q, int T, int o_del, int e_del,
-                   int o_ins, int e_ins, int a, int b, cudaStream_t stream) {
+                   int *out, int *ws, int N, int Q, int T, int o_del,
+                   int e_del, int o_ins, int e_ins, int a, int b,
+                   cudaStream_t stream) {
   const int KQ = (Q + 31) / 32;
-  const size_t smem =
-      (size_t)kWarps * (4 * 32 * KQ + (kWantSub ? T : 0)) * sizeof(int);
+  const size_t smem = (size_t)kWarps * 4 * 32 * KQ * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         ksw_local_generic_kernel<kWantSub>,
@@ -365,21 +383,21 @@ int launch_generic(const int *query, const int *qlen, const int *target,
   }
   const int blocks = (N + kWarps - 1) / kWarps;
   ksw_local_generic_kernel<kWantSub><<<blocks, 32 * kWarps, smem, stream>>>(
-      query, qlen, target, tlen, minsc, valid, out, N, Q, T, o_del, e_del,
-      o_ins, e_ins, a, b);
+      query, qlen, target, tlen, minsc, valid, out, ws, N, Q, T, o_del,
+      e_del, o_ins, e_ins, a, b);
   return (int)cudaGetLastError();
 }
 
 template <bool kWantSub>
 int dispatch(int instance, const int *query, const int *qlen,
              const int *target, const int *tlen, const int *minsc,
-             const int *valid, int *out, int N, int Q, int T, int o_del,
-             int e_del, int o_ins, int e_ins, int a, int b,
+             const int *valid, int *out, int *ws, int N, int Q, int T,
+             int o_del, int e_del, int o_ins, int e_ins, int a, int b,
              cudaStream_t stream) {
 #define KSW_REG(KK)                                                          \
   case KK:                                                                   \
     return launch_reg<KK, kWantSub>(query, qlen, target, tlen, minsc, valid, \
-                                    out, N, Q, T, o_del, e_del, o_ins,       \
+                                    out, ws, N, Q, T, o_del, e_del, o_ins,   \
                                     e_ins, a, b, stream);
   switch (instance) {
     KSW_REG(1) KSW_REG(2) KSW_REG(3) KSW_REG(4) KSW_REG(5) KSW_REG(6)
@@ -389,33 +407,36 @@ int dispatch(int instance, const int *query, const int *qlen,
   }
 #undef KSW_REG
   return launch_generic<kWantSub>(query, qlen, target, tlen, minsc, valid,
-                                  out, N, Q, T, o_del, e_del, o_ins, e_ins, a,
-                                  b, stream);
+                                  out, ws, N, Q, T, o_del, e_del, o_ins,
+                                  e_ins, a, b, stream);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. All pointers are device pointers to
 // contiguous int32 arrays: query (N, Q), qlen, target (N, T), tlen, minsc,
-// valid (N,), out (N, 5). want_sub picks the template instance; `instance`
-// is K of the register kernel (1..8, with Q <= 32 * instance) or 0 for the
-// generic shared-memory kernel. Launches on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for an instance
-// that cannot hold Q); does not synchronise.
+// valid (N,), out (N, 5), and with want_sub the workspace ws (N, T) of the
+// row maxima (unused, and may be null, without). want_sub picks the
+// template instance; `instance` is K of the register kernel (1..8, with
+// Q <= 32 * instance) or 0 for the generic shared-memory kernel. Launches
+// on `stream` and returns cudaGetLastError() (0 on success;
+// cudaErrorInvalidValue for an instance that cannot hold Q or a missing
+// workspace); does not synchronise.
 extern "C" int ksw_local_launch(const int *query, const int *qlen,
                                 const int *target, const int *tlen,
                                 const int *minsc, const int *valid, int *out,
-                                int N, int Q, int T, int o_del, int e_del,
-                                int o_ins, int e_ins, int a, int b,
+                                int *ws, int N, int Q, int T, int o_del,
+                                int e_del, int o_ins, int e_ins, int a, int b,
                                 int want_sub, int instance, void *stream) {
   if (N <= 0) return 0;
   if (instance < 0 || instance > kMaxK ||
-      (instance > 0 && Q > 32 * instance))
+      (instance > 0 && Q > 32 * instance) || (want_sub && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   return want_sub ? dispatch<true>(instance, query, qlen, target, tlen, minsc,
-                                   valid, out, N, Q, T, o_del, e_del, o_ins,
-                                   e_ins, a, b, (cudaStream_t)stream)
+                                   valid, out, ws, N, Q, T, o_del, e_del,
+                                   o_ins, e_ins, a, b, (cudaStream_t)stream)
                   : dispatch<false>(instance, query, qlen, target, tlen,
-                                    minsc, valid, out, N, Q, T, o_del, e_del,
-                                    o_ins, e_ins, a, b, (cudaStream_t)stream);
+                                    minsc, valid, out, ws, N, Q, T, o_del,
+                                    e_del, o_ins, e_ins, a, b,
+                                    (cudaStream_t)stream);
 }

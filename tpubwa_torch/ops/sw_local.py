@@ -16,7 +16,13 @@ function, decided by the tensors' device:
   fallback from the kernel to the plain version. The kernel has register
   instances (a lane keeps K columns of the H and E rows in registers) for
   Q <= 256 and a generic shared-memory instance beyond; the query width
-  alone decides (``kernel_instance``).
+  alone decides (``kernel_instance``). With ``want_sub`` the kernel keeps
+  every task's row maxima in a workspace of (N, T) int32 in device memory
+  that the wrapper allocates (``workspace_bytes``), not in shared memory,
+  so a block's shared memory (``smem_bytes``) depends on Q alone and any
+  rescue window launches: pestat's widest at ``max_ins`` is about 40 kbp.
+  Only a query too wide for the generic instance's shared memory, or T past
+  ``MAX_T``, raises ValueError (``check_launch``).
 
 Both return (N, 5) int32: score, te, qe, score2, te2 (0-based ends, -1
 when nothing scored). ``want_sub=False`` skips the run tracking and
@@ -40,6 +46,9 @@ _count_lock = threading.Lock()
 # must match csrc/ksw_local.cu: the largest register instance (columns a
 # lane owns)
 MAX_K = 8
+# the widest target the kernel takes: it counts rows in int32, and row
+# indices plus a query length (te + qlen, i + 31) must not wrap
+MAX_T = 1 << 30
 
 
 def ksw_local_ref(query, qlen, target, tlen, minsc, valid, *,
@@ -61,6 +70,11 @@ def ksw_local_ref(query, qlen, target, tlen, minsc, valid, *,
         if N and Q and T else 0
     jj = torch.arange(Q, dtype=_I32, device=dev)[None, :]
     in_q = jj < qlen
+    # a task's rows are live below its tlen and dead from there on, so a
+    # dead row's H and E need not be kept: nothing it computes is used
+    live = valid & (torch.arange(rows, device=dev)[None, :] < tlen)
+    aoff = e_ins * jj - oe_ins               # A(j) - G(j)
+    foff = e_ins * (1 - jj)                  # F(j) - max_{k<j} A(k)
     scmat = _scmat(a, b, dev)
     qcode = query.to(torch.int64).clamp(0, 4)
     tgt = target.to(torch.int64).clamp(0, 4)
@@ -70,47 +84,45 @@ def ksw_local_ref(query, qlen, target, tlen, minsc, valid, *,
     neg = torch.full((N, 1), NEG, dtype=_I32, device=dev)
 
     for i in range(rows):
-        live = valid & (i < tlen)
         S = scmat[tgt[:, i:i + 1], qcode]                      # (N, Q)
-        M = (torch.cat([z, H[:, :-1]], dim=1) + S).clamp(min=0)
+        M = (torch.cat([z, H[:, :-1]], dim=1) + S).clamp_(min=0)
         G = torch.maximum(M, E)
         # F(j) = max(0, max_{k<j} (G(k) - oe_ins - e_ins*(j-1-k)))
-        A = (G - oe_ins) + e_ins * jj
-        excl = torch.cat([neg, torch.cummax(A, dim=1).values[:, :-1]], dim=1)
-        F = (excl - e_ins * (jj - 1)).clamp(min=0)
-        Hn = torch.where(in_q, torch.maximum(G, F), 0)
-        En = torch.where(in_q, torch.maximum(E - e_del, Hn - oe_del)
-                         .clamp(min=0), 0)
-        imax = Hn.amax(dim=1, keepdim=True)
-        # FIRST column that reaches the row max; -1 when the row is all 0
-        imj = torch.where((Hn == imax) & (imax > 0), jj, Q + 1) \
-            .amin(dim=1, keepdim=True)
-        imj = torch.where(imax > 0, imj, -1)
-        # strictly greater: the earliest row of the global max wins
-        better = live & (imax > best)
+        excl = torch.cat([neg, torch.cummax(G + aoff, dim=1).values[:, :-1]],
+                         dim=1)
+        H = torch.where(in_q, torch.maximum(G, (excl + foff).clamp_(min=0)),
+                        0)
+        # E stays 0 past qlen: H is 0 there
+        E = torch.maximum(E - e_del, H - oe_del).clamp_(min=0)
+        imax = H.amax(dim=1, keepdim=True)
+        # strictly greater: the earliest row of the global max wins, at
+        # the FIRST column that reaches it (imax > best >= 0 there)
+        better = live[:, i:i + 1] & (imax > best)
         best = torch.where(better, imax, best)
         te = torch.where(better, i, te)
-        qe = torch.where(better, imj, qe)
-        H = torch.where(live, Hn, H)
-        E = torch.where(live, En, E)
-        imaxs[:, i:i + 1] = torch.where(live, imax, 0)
+        qe = torch.where(better, torch.where(H == imax, jj, Q)
+                         .amin(dim=1, keepdim=True), qe)
+        imaxs[:, i:i + 1] = imax
+    imaxs.masked_fill_(~live, 0)
 
     score2, te2 = z.clone(), z - 1
     if want_sub:
         # run tracking: a run's position is the row of its last max UPDATE
         # and adjacency is tested against that row, so non-improving rows
         # can split runs; a finished run counts only outside the best
-        # hit's neighbourhood, which needs the final te — a second pass
+        # hit's neighbourhood, which needs the final te — a second pass.
+        # A row where no task reaches minsc changes nothing: skipped.
         lo, hi = te - qlen, te + qlen
         bf, bs = z.clone(), z - 2
+        elig_all = live & (imaxs >= minsc)
 
         def close(fin, bf, bs, score2, te2):
             upd = fin & ((bs < lo) | (bs > hi)) & (bf > score2)
             return torch.where(upd, bf, score2), torch.where(upd, bs, te2)
 
-        for i in range(rows):
+        for i in elig_all.any(dim=0).nonzero()[:, 0].tolist():
             im = imaxs[:, i:i + 1]
-            elig = valid & (i < tlen) & (im >= minsc)
+            elig = elig_all[:, i:i + 1]
             new_run = elig & (bs + 1 != i)
             score2, te2 = close(new_run & (bs >= 0), bf, bs, score2, te2)
             take = new_run | (elig & (im > bf))
@@ -123,7 +135,7 @@ def ksw_local_ref(query, qlen, target, tlen, minsc, valid, *,
 def _declare(lib: C.CDLL) -> None:
     lib.ksw_local_launch.restype = C.c_int
     lib.ksw_local_launch.argtypes = \
-        [C.c_void_p] * 7 + [C.c_int] * 11 + [C.c_void_p]
+        [C.c_void_p] * 8 + [C.c_int] * 11 + [C.c_void_p]
 
 
 def build_lib():
@@ -140,16 +152,35 @@ def kernel_instance(Q: int) -> int:
     return K if K <= MAX_K else 0
 
 
-def smem_bytes(Q: int, T: int, want_sub: bool, instance: int | None = None) \
-        -> int:
+def smem_bytes(Q: int, instance: int | None = None) -> int:
     """Dynamic shared memory of one block of the kernel instance that takes
-    Q (or of the one named): with want_sub the T stored row maxima of each
-    task; in the generic instance also four rows over the query (codes, H,
-    E, G; padded to whole 32-lane slots)."""
+    Q (or of the one named): none in a register instance; in the generic
+    instance four rows over the query (codes, H, E, G; padded to whole
+    32-lane slots) for each of the block's tasks."""
     if instance is None:
         instance = kernel_instance(Q)
-    rows = 0 if instance else 4 * 32 * ((Q + 31) // 32)
-    return _WARPS * 4 * (rows + (T if want_sub else 0))
+    return 0 if instance else _WARPS * 4 * 4 * 32 * ((Q + 31) // 32)
+
+
+def workspace_bytes(N: int, T: int, want_sub: bool) -> int:
+    """Device memory the wrapper allocates for a launch: with want_sub the
+    T row maxima of each of the N tasks, nothing without."""
+    return 4 * N * T if want_sub else 0
+
+
+def check_launch(Q: int, T: int, instance: int | None = None) -> None:
+    """Raise ValueError naming Q and T when the instance that takes Q (or
+    the one named) cannot launch at these widths: its block's shared
+    memory over SMEM_MAX (the generic instance past Q = 3,616), or T past
+    MAX_T."""
+    need = smem_bytes(Q, instance)
+    if need > _SMEM_MAX:
+        raise ValueError(f"ksw_local: Q={Q}, T={T} needs {need} bytes of "
+                         f"shared memory per block, over the {_SMEM_MAX} "
+                         f"available")
+    if T > MAX_T:
+        raise ValueError(f"ksw_local: Q={Q}, T={T}: T is past the kernel's "
+                         f"{MAX_T} rows")
 
 
 def launch_kernel(args, instance: int, *, o_del: int, e_del: int,
@@ -164,18 +195,18 @@ def launch_kernel(args, instance: int, *, o_del: int, e_del: int,
     if query.dim() != 2 or target.dim() != 2:
         raise ValueError("ksw_local: query and target must be 2-D")
     Q, T = query.shape[1], target.shape[1]
-    need = smem_bytes(Q, T, want_sub, instance)
-    if need > _SMEM_MAX:
-        raise ValueError(f"ksw_local: Q={Q}, T={T} needs {need} bytes of "
-                         f"shared memory per block, over the {_SMEM_MAX} "
-                         f"available")
+    check_launch(Q, T, instance)
     N = check_task_args("ksw_local", ("query", "qlen", "target", "tlen",
                                       "minsc", "valid"), args)
     out = torch.empty((N, 5), dtype=_I32, device=query.device)
     if N == 0:
         return out
     lib = kernel.load(_declare)
-    ptrs = [x.data_ptr() for x in args] + [out.data_ptr()]
+    # the row maxima of want_sub; the caching allocator serves it
+    ws = torch.empty((N, T), dtype=_I32, device=query.device) \
+        if want_sub else None
+    ptrs = [x.data_ptr() for x in args] + \
+        [out.data_ptr(), None if ws is None else ws.data_ptr()]
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ksw_local_launch(*ptrs, N, Q, T, o_del, e_del, o_ins,
@@ -197,8 +228,8 @@ def ksw_local(query, qlen, target, tlen, minsc, valid, *, o_del: int,
     CPU tensors run the plain version. CUDA tensors must be contiguous
     int32 on one device, query (N, Q), target (N, T), the rest (N,); the
     kernel instance that ``kernel_instance(Q)`` names is launched on the
-    current stream and its launch error, if any, raises. Shapes whose rows
-    do not fit one block's shared memory raise ValueError."""
+    current stream and its launch error, if any, raises. Shapes the kernel
+    cannot launch raise ValueError (``check_launch``)."""
     args = (query, qlen, target, tlen, minsc, valid)
     kw = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins, a=a, b=b,
               want_sub=want_sub)
