@@ -1,0 +1,5 @@
+"""Set-up: from process start to the window's start."""
+
+
+def read(w):
+    return w.setup_s
