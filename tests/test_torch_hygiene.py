@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax_and_no_tpubwa():
             "tpubwa_torch.tools.contig_layouts, "
             "tpubwa_torch.tools.long_pairs, "
             "tpubwa_torch.tools.long_reads, "
-            "tpubwa_torch.tools.mate_pairs\n"
+            "tpubwa_torch.tools.mate_pairs, "
+            "tpubwa_torch.tools.trace_cell\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpubwa.')) or m == 'tpubwa')\n"
             "print(bad)\n")

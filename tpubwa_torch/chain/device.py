@@ -21,6 +21,7 @@ import torch
 
 from ..index.device import DeviceIndex, sa_lookup
 from ..ops.window import slice_rows
+from ..utils.profiling import host_int
 
 NEG31 = -(2**31) + 1
 
@@ -255,8 +256,8 @@ def chain_seeds(didx: DeviceIndex, seeds: dict, cfg: ChainConfig):
         st["chain_id"][:, j] = torch.where(sv, assigned, -1)
 
     # slots past the last valid seed in the whole batch are no-ops
-    jmax = int(torch.where(valid, _iota(S, rbeg)[None, :] + 1, 0).amax()) \
-        if B else 0
+    jmax = host_int(torch.where(valid, _iota(S, rbeg)[None, :] + 1, 0)
+                    .amax()) if B else 0
     for j in range(jmax):
         body(j)
     st["weight"] = torch.minimum(st["w_q"], st["w_r"]).clamp(max=2**30 - 1)
@@ -317,7 +318,7 @@ def chain_filter(chains: dict, cfg: ChainConfig):
         drop = bpos < C
         kept[:, i] = torch.where(vi & ~drop, torch.where(large, 2, 3), 0)
 
-    imax = int(chains["n"].amax()) if B else 0
+    imax = host_int(chains["n"].amax()) if B else 0
     for i in range(1, imax):
         body(i)
     # chains pointed at by a kept chain's `first` become shadowed (kept=1),

@@ -30,6 +30,7 @@ from ..chain.device import chain_filter, chain_seeds, seeds_from_smems
 from ..extend.worker import extend_chains
 from ..seed.anchor import collect_smems_anchor
 from ..seed.lut import LutSeedConfig, collect_smems_lut
+from ..utils.profiling import span, synced
 
 READS_AXIS = "reads"
 
@@ -108,15 +109,19 @@ def make_mesh(n_devices: int | None = None, axis: str = READS_AXIS,
 
 def worker1_step(didx, seqs, lens, lut=None, *, scfg, ccfg, ecfg) -> dict:
     """The full per-shard device step (seed -> chain -> filter -> extend):
-    the region state of every read, with l_rep."""
-    if isinstance(scfg, LutSeedConfig):
-        smems = collect_smems_lut(didx, lut, seqs, lens, scfg)
-    else:
-        smems = collect_smems_anchor(didx, seqs, lens, scfg)
-    seeds = seeds_from_smems(didx, smems, ccfg)
-    ch = chain_seeds(didx, seeds, ccfg)
-    flt = chain_filter(ch, ccfg)
-    st = extend_chains(didx, seqs, lens, seeds, ch, ecfg, flt)
+    the region state of every read, with l_rep. Each stage is a span of
+    the recorder (``utils.profiling``)."""
+    with span("seed"):
+        if isinstance(scfg, LutSeedConfig):
+            smems = collect_smems_lut(didx, lut, seqs, lens, scfg)
+        else:
+            smems = collect_smems_anchor(didx, seqs, lens, scfg)
+    with span("chain"):
+        seeds = seeds_from_smems(didx, smems, ccfg)
+        ch = chain_seeds(didx, seeds, ccfg)
+        flt = chain_filter(ch, ccfg)
+    with span("extend"):
+        st = extend_chains(didx, seqs, lens, seeds, ch, ecfg, flt)
     return dict(
         n=st["n"], overflow=st["overflow"], rb=st["rb"], re=st["re"],
         qb=st["qb"], qe=st["qe"], score=st["score"], truesc=st["truesc"],
@@ -234,10 +239,13 @@ def pe_hist_psum(dirs, inserts, max_ins: int, device) -> np.ndarray:
     values clipped to 0..3); inserts: (P,) int, clipped to 0..max_ins.
     Host arrays of any length; the scatter-add runs on ``device``. Returns the (4, max_ins+1) int64 histogram
     ready for native mem_pestat_from_hist."""
-    d = torch.as_tensor(np.asarray(dirs, np.int32)).to(device)
-    ins = torch.as_tensor(np.asarray(inserts, np.int64)).to(device)
+    with synced(2):     # two uploads from pageable host memory
+        d = torch.as_tensor(np.asarray(dirs, np.int32)).to(device)
+        ins = torch.as_tensor(np.asarray(inserts, np.int64)).to(device)
     idx = d.clamp(0, 3).to(torch.int64) * (max_ins + 1) + \
         ins.clamp(0, max_ins)
     h = torch.zeros(4 * (max_ins + 1), dtype=torch.int32, device=d.device)
     h.index_add_(0, idx, (d >= 0).to(torch.int32))
-    return h.cpu().numpy().astype(np.int64).reshape(4, max_ins + 1)
+    with synced():
+        h = h.cpu()
+    return h.numpy().astype(np.int64).reshape(4, max_ins + 1)

@@ -32,6 +32,7 @@ from ..ops.sw import ksw_extend
 from ..ops.window import (query_window_asc, query_window_desc,
                           text_window_asc, text_window_desc)
 from ..seed.lut import _compact_rows
+from ..utils.profiling import host_any
 
 _I32 = torch.int32
 
@@ -98,10 +99,6 @@ def visit_order(seed_rank, len_s, stored, C: int, L: int):
 def _row_pick(arr: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     """arr[b, col[b]]."""
     return arr.gather(1, col.to(torch.int64)[:, None])[:, 0]
-
-
-def _any(x: torch.Tensor) -> bool:
-    return bool(x.any())
 
 
 def extend_chains(didx: DeviceIndex, seqs, lens, seeds: dict, chains: dict,
@@ -203,7 +200,7 @@ def extend_chains(didx: DeviceIndex, seqs, lens, seeds: dict, chains: dict,
         st = eng.select(st)
         if _stop_after == "sel1":
             return st
-        if _any(eng.active(st)):
+        if host_any(eng.active(st)):
             st = eng.run_extension(st)
     if _stop_after == "round1":
         return st
@@ -224,9 +221,9 @@ def extend_chains(didx: DeviceIndex, seqs, lens, seeds: dict, chains: dict,
     sub_ctx["n_pairs"] = torch.where(dv, sub_ctx["n_pairs"], 0)
     sub_st = {k: v[srcrow] for k, v in st.items()}
     eng2 = _Engine(didx, cfg, sub_ctx)
-    while _any(sub_st["ptr"] < sub_ctx["n_pairs"]):
+    while host_any(sub_st["ptr"] < sub_ctx["n_pairs"]):
         sub_st = eng2.select(sub_st)
-        if _any(eng2.active(sub_st)):
+        if host_any(eng2.active(sub_st)):
             sub_st = eng2.run_extension(sub_st)
     rp = rpos.clamp(0, Dr - 1).to(torch.int64)
     sel = active & room
@@ -283,14 +280,14 @@ def _run_try(cfg: ExtendConfig, q, ql, t, tl, h, eb: int, act, prev0):
             srcrow, rpos, room, dv = _compact_rows(retry, Dr)
             srcrow = srcrow.to(torch.int64)
             actc = dv & retry[srcrow]
-            resc = call(srcrow, actc, aw1) if _any(actc) else zeros(Dr)
+            resc = call(srcrow, actc, aw1) if host_any(actc) else zeros(Dr)
             back = resc[rpos.clamp(0, Dr - 1).to(torch.int64)]
             covered = retry & room
             left = retry & ~room
-            res_f = call(None, left, aw1) if _any(left) else zeros(B)
+            res_f = call(None, left, aw1) if host_any(left) else zeros(B)
             res2 = torch.where(covered[:, None], back, res_f)
         else:
-            res2 = call(None, retry, aw1) if _any(retry) else zeros(B)
+            res2 = call(None, retry, aw1) if host_any(retry) else zeros(B)
         sc2, qle2, tle2, gtle2, gsc2, moff2 = (res2[:, c] for c in range(6))
         prev_sc = sc
         sc = torch.where(retry, sc2, sc)
@@ -592,7 +589,7 @@ def _extend_taskpar(didx: DeviceIndex, cfg: ExtendConfig, ctx: dict, st,
         stt["ptr"] = stt["ptr"] + active.to(_I32)
         return stt
 
-    while _any(st["ptr"] < n_pairs):
+    while host_any(st["ptr"] < n_pairs):
         for _ in range(4):
             st = step(st)
     return st
@@ -666,7 +663,7 @@ class _Engine:
         """Advance every read past its skippable seeds (no extension)."""
         while True:
             skip, _ = self.containment_skip(st)
-            if not _any(skip):
+            if not host_any(skip):
                 return st
             slot, _ = self.cur_slot(st)
             st = dict(st)

@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.profiling import host_any
 from .builder import FMIndex
 
 M32 = 0xFFFFFFFF
@@ -256,7 +257,7 @@ def sa_lookup(didx: DeviceIndex, k: torch.Tensor,
     live = valid
     while True:
         k, steps, live = body(*body(k, steps, live))
-        if not bool(live.any()):
+        if not host_any(live):
             break
     shift = int(np.log2(didx.sa_intv))
     return steps + didx.sa_samples[(k >> shift).to(torch.int64)]

@@ -30,6 +30,7 @@ import threading
 
 import torch
 
+from ..utils.profiling import host_any, host_int
 from .cubuild import SMEM_MAX, WARPS, KernelLib, check_task_args
 
 NEG = -(2**30)
@@ -90,7 +91,7 @@ def ksw_extend_ref(query, qlen, target, tlen, h0, w, end_bonus, valid, *,
 
     while True:
         live = ~done & (i < tlen)
-        if not bool(live.any()):
+        if not host_any(live):
             break
         beg_r = torch.maximum(beg, i - w)
         end_r = torch.minimum(torch.minimum(end, i + w + 1), qlen)
@@ -267,7 +268,7 @@ def launch_kernel(args, instance: int, *, o_del: int, e_del: int,
     ring = 0
     if instance == 0:
         if w_max is None:
-            w_max = int(args[5].max())
+            w_max = host_int(args[5].max())
         _check_smem(Q, w_max)
         ring = ring_cols(Q, w_max)
     lib = kernel.load(_declare)

@@ -35,6 +35,7 @@ import threading
 
 import torch
 
+from ..utils.profiling import host_int, synced
 from .cubuild import SMEM_MAX as _SMEM_MAX
 from .cubuild import WARPS as _WARPS
 from .cubuild import KernelLib, check_task_args
@@ -66,7 +67,7 @@ def ksw_local_ref(query, qlen, target, tlen, minsc, valid, *,
     z = torch.zeros((N, 1), dtype=_I32, device=dev)
     best, te, qe = z.clone(), z - 1, z - 1
     # rows any task still needs: every later row is dead for all of them
-    rows = int(torch.where(valid, tlen, 0).amax().clamp(0, T)) \
+    rows = host_int(torch.where(valid, tlen, 0).amax().clamp(0, T)) \
         if N and Q and T else 0
     jj = torch.arange(Q, dtype=_I32, device=dev)[None, :]
     in_q = jj < qlen
@@ -120,7 +121,9 @@ def ksw_local_ref(query, qlen, target, tlen, minsc, valid, *,
             upd = fin & ((bs < lo) | (bs > hi)) & (bf > score2)
             return torch.where(upd, bf, score2), torch.where(upd, bs, te2)
 
-        for i in elig_all.any(dim=0).nonzero()[:, 0].tolist():
+        with synced():
+            rows_hit = elig_all.any(dim=0).nonzero()[:, 0].tolist()
+        for i in rows_hit:
             im = imaxs[:, i:i + 1]
             elig = elig_all[:, i:i + 1]
             new_run = elig & (bs + 1 != i)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..index.device import DeviceIndex
+from ..utils.profiling import synced
 
 
 def _shift_mask(nb: int) -> int:
@@ -34,8 +35,9 @@ def shift_left(x: torch.Tensor, s: torch.Tensor, W: int, fill,
     j = s + torch.arange(W, dtype=torch.int64, device=x.device)[None, :]
     out = x.gather(1, j.clamp(max=NB - 1)) if NB else \
         torch.full((B, W), fill, dtype=x.dtype, device=x.device)
-    return torch.where(j < NB, out, torch.as_tensor(fill, dtype=x.dtype,
-                                                    device=x.device))
+    with synced():      # the fill's copy to the device blocks the host
+        fill = torch.as_tensor(fill, dtype=x.dtype, device=x.device)
+    return torch.where(j < NB, out, fill)
 
 
 def _window_from_pac(didx: DeviceIndex, a_base: torch.Tensor,
@@ -94,8 +96,9 @@ def slice_rows(flat: torch.Tensor, starts: torch.Tensor, S: int,
     j = s0 + torch.arange(S, dtype=torch.int64, device=flat.device)[None, :]
     src = flat[j.clamp(max=max(D - 1, 0))] if D else \
         torch.full(j.shape, fill, dtype=flat.dtype, device=flat.device)
-    return torch.where(j < D, src, torch.as_tensor(fill, dtype=flat.dtype,
-                                                   device=flat.device))
+    with synced():      # the fill's copy to the device blocks the host
+        fill = torch.as_tensor(fill, dtype=flat.dtype, device=flat.device)
+    return torch.where(j < D, src, fill)
 
 
 def query_window_asc(seqs: torch.Tensor, start: torch.Tensor,

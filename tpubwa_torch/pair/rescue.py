@@ -23,6 +23,7 @@ import torch
 
 from ..ops.sw_local import ksw_local
 from ..ops.window import shift_left, text_window_asc
+from ..utils.profiling import synced
 
 _I32 = torch.int32
 
@@ -134,11 +135,13 @@ def dispatch_rescue_tasks(didx, batch_seqs, batch_lens, tasks, id0, opt):
         return torch.as_tensor(a).to(dev).to(dtype)
     kw = dict(o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
               e_ins=opt.e_ins, a_sc=opt.a, b_sc=opt.b)
-    return _rescue_batch_device(
-        didx, torch.as_tensor(batch_seqs).to(dev),
-        torch.as_tensor(batch_lens).to(dev), up(mate_row), up(is_rev),
-        up(rb.astype(np.int64), didx.pos_dtype), up(wlen), T,
-        int(opt.min_seed_len * opt.a), kw)
+    with synced(6):     # six uploads from pageable host memory
+        args = (torch.as_tensor(batch_seqs).to(dev),
+                torch.as_tensor(batch_lens).to(dev), up(mate_row),
+                up(is_rev), up(rb.astype(np.int64), didx.pos_dtype),
+                up(wlen))
+    return _rescue_batch_device(didx, *args, T,
+                                int(opt.min_seed_len * opt.a), kw)
 
 
 def run_rescue_tasks(didx, batch_seqs, batch_lens, tasks, id0, opt):

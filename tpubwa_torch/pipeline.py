@@ -45,6 +45,7 @@ from .oracle import Oracle, sam_args, to_copt
 from .pair.rescue import dispatch_rescue_tasks
 from .seed.anchor import AnchorSeedConfig
 from .seed.lut import KmerLUT, LutSeedConfig
+from .utils.profiling import span, synced
 
 REG_FIELDS = ("rb", "re", "qb", "qe", "score", "truesc", "w", "seedcov",
               "seedlen0", "rid")
@@ -177,7 +178,8 @@ class Aligner:
         return self._packed[bound]
 
     def _to_device(self, a) -> torch.Tensor:
-        return torch.as_tensor(a).to(self.device).contiguous()
+        with synced():      # a copy from pageable host memory blocks
+            return torch.as_tensor(a).to(self.device).contiguous()
 
     def worker1_packed(self, seqs, lens) -> torch.Tensor:
         """worker1 with all outputs compacted + bit-packed into ONE int32
@@ -195,9 +197,10 @@ class Aligner:
         budgets (or whose regs would overflow cap) gets overflow=1, n_eff=0
         and is realigned downstream, so packing never affects output.
         """
-        seqs = self._to_device(seqs)
-        return self._packed_for_len(int(seqs.shape[1]))(
-            seqs, self._to_device(lens))
+        with span("tier1"):
+            seqs = self._to_device(seqs)
+            return self._packed_for_len(int(seqs.shape[1]))(
+                seqs, self._to_device(lens))
 
     def _make_packed(self, scfg, ccfg, ecfg, cap_factor: int | None = None):
         R = ecfg.max_regs
@@ -211,7 +214,8 @@ class Aligner:
             lens = lens.to(torch.int32)
             st = worker1_step(self.didx, seqs, lens, self.lut, scfg=scfg,
                               ccfg=ccfg, ecfg=ecfg)
-            return _pack(st, st["l_rep"], R, cap_factor * seqs.shape[0])
+            with span("pack"):
+                return _pack(st, st["l_rep"], R, cap_factor * seqs.shape[0])
 
         return packed
 
@@ -327,9 +331,11 @@ class Aligner:
         rows = np.flatnonzero(ovf)
         if len(rows) < self.TIER3_MIN:
             return n, ovf, l_rep, flat
-        self.stats["tier3_rows"] = self.stats.get("tier3_rows", 0) + len(rows)
-        return self._tier2_merge(batch, n, ovf, l_rep, flat, self._rerun(
-            self._packed_big3_fn(), batch, rows, self.TIER3_ROWS))
+        with span("tier3"):
+            self.stats["tier3_rows"] = \
+                self.stats.get("tier3_rows", 0) + len(rows)
+            return self._tier2_merge(batch, n, ovf, l_rep, flat, self._rerun(
+                self._packed_big3_fn(), batch, rows, self.TIER3_ROWS))
 
     def _tier2_dispatch(self, batch: ReadBatch, ovf):
         """Issue the big-caps device call for tier-1-overflow reads, or
@@ -346,15 +352,17 @@ class Aligner:
         if not fired:
             return None
         self.stats["tier2_rows"] = self.stats.get("tier2_rows", 0) + len(rows)
-        return self._rerun(self._packed_big_fn(), batch, rows,
-                           self.TIER2_ROWS)
+        with span("tier2"):
+            return self._rerun(self._packed_big_fn(), batch, rows,
+                               self.TIER2_ROWS)
 
     def _tier2_merge(self, batch: ReadBatch, n, ovf, l_rep, flat, t2):
         """Download a big-tier result and splice the re-run reads' regions
         back in; returns updated (n, ovf, l_rep, flat)."""
         rows, rsel, dev = t2
-        n2, ovf2, lrep2, flat2 = self._unpack_host(dev.cpu().numpy(),
-                                                   len(rsel))
+        with synced():
+            buf = dev.cpu().numpy()
+        n2, ovf2, lrep2, flat2 = self._unpack_host(buf, len(rsel))
         offs2 = np.concatenate([[0], np.cumsum(n2)])
         offs = np.concatenate([[0], np.cumsum(n)])
         per_read = [flat[offs[b]:offs[b + 1]] for b in range(batch.n)]
@@ -409,14 +417,14 @@ class Aligner:
 
     def _finish_se_dispatched(self, batch: ReadBatch, parts, id0: int):
         if len(parts) == 1 and parts[0][0] is None:
-            return self._finish_se_buf(batch, parts[0][1].cpu().numpy(), id0)
+            return self._finish_se_buf(batch, _download(parts[0][1]), id0)
         B = batch.n
         n = np.zeros(B, np.int32)
         ovf = np.zeros(B, bool)
         l_rep = np.zeros(B, np.int32)
         per_read: list = [None] * B
         for rows, dev, n_sub in parts:
-            ns, ovfs, lrs, flats = self._unpack_host(dev.cpu().numpy(), n_sub)
+            ns, ovfs, lrs, flats = self._unpack_host(_download(dev), n_sub)
             offs = np.concatenate([[0], np.cumsum(ns)])
             for k, r in enumerate(rows):
                 n[r] = ns[k]
@@ -472,8 +480,9 @@ class Aligner:
         self.stats["reads"] += batch.n
         t2 = self._tier2_dispatch(batch, ovf) if ovf.any() else None
         if t2 is not None:
-            n, ovf, l_rep, flat = self._tier2_merge(batch, n, ovf, l_rep,
-                                                    flat, t2)
+            with span("tier2"):
+                n, ovf, l_rep, flat = self._tier2_merge(batch, n, ovf, l_rep,
+                                                        flat, t2)
         if ovf.any():
             # mega-repeat reads are exactly where the scalar oracle is
             # slowest, so give the seed-tail tier a chance first
@@ -487,19 +496,21 @@ class Aligner:
         lock and each chunk runs on its own native handle); overflow reads
         are realigned by the oracle. Joined in order — output is
         byte-identical to the serial path."""
-        offs_all = np.concatenate([[0], np.cumsum(n)])
-        k = min(self._n_finish_threads(), max(batch.n // 256, 1))
-        if k <= 1:
-            return self._finish_chunk(batch, n, ovf, l_rep, flat, offs_all,
-                                      0, batch.n, id0, self.oracle)
-        bounds = [round(batch.n * t / k) for t in range(k + 1)]
-        oracles = self._finish_oracles(k)
-        with cf.ThreadPoolExecutor(max_workers=k) as ex:
-            futs = [ex.submit(self._finish_chunk, batch, n, ovf, l_rep,
-                              flat, offs_all, bounds[t], bounds[t + 1],
-                              id0, oracles[t])
-                    for t in range(k)]
-            return "".join(f.result() for f in futs)
+        with span("finish"):
+            offs_all = np.concatenate([[0], np.cumsum(n)])
+            k = min(self._n_finish_threads(), max(batch.n // 256, 1))
+            if k <= 1:
+                return self._finish_chunk(batch, n, ovf, l_rep, flat,
+                                          offs_all, 0, batch.n, id0,
+                                          self.oracle)
+            bounds = [round(batch.n * t / k) for t in range(k + 1)]
+            oracles = self._finish_oracles(k)
+            with cf.ThreadPoolExecutor(max_workers=k) as ex:
+                futs = [ex.submit(self._finish_chunk, batch, n, ovf, l_rep,
+                                  flat, offs_all, bounds[t], bounds[t + 1],
+                                  id0, oracles[t])
+                        for t in range(k)]
+                return "".join(f.result() for f in futs)
 
     @staticmethod
     def _n_finish_threads() -> int:
@@ -547,7 +558,7 @@ class Aligner:
           4. native pairing/flags/TLEN/SAM replay with the device results
              injected.
         """
-        buf = self.worker1_packed(batch.seqs, batch.lens).cpu().numpy()
+        buf = _download(self.worker1_packed(batch.seqs, batch.lens))
         return self._finish_pe_buf(batch, buf, id0)
 
     def align_pe_stream(self, batches, id0: int = 0, depth: int = 2):
@@ -570,7 +581,7 @@ class Aligner:
                 n = i0x
             if prev is not None:
                 bb, dev, i0 = prev
-                ctx = self._pe_stage_a(bb, dev.cpu().numpy(), i0)
+                ctx = self._pe_stage_a(bb, _download(dev), i0)
                 devb = self.worker1_packed(b.seqs, b.lens)
                 yield self._pe_stage_b(ctx)
             else:
@@ -579,7 +590,7 @@ class Aligner:
             n += b.n // 2
         if prev is not None:
             bb, dev, i0 = prev
-            yield self._finish_pe_buf(bb, dev.cpu().numpy(), i0)
+            yield self._finish_pe_buf(bb, _download(dev), i0)
 
     def _finish_pe_buf(self, batch: ReadBatch, buf: np.ndarray,
                        id0: int) -> str:
@@ -623,11 +634,15 @@ class Aligner:
         the rescue device call in flight (nothing downloads it here), so
         the stream can enqueue the next batch's worker1 behind it."""
         ctx = self._pe_regions(batch, buf, id0)
-        ctx["hist_h"] = self._pe_hist(ctx)
-        ctx["tasks"] = self._pe_tasks(ctx)
+        with span("pe/isize"):
+            ctx["hist_h"] = self._pe_hist(ctx)
+        with span("pe/tasks"):
+            ctx["tasks"] = self._pe_tasks(ctx)
         # one batched device local-alignment call, dispatched async
-        ctx["res_dev"] = dispatch_rescue_tasks(
-            self.didx, batch.seqs, batch.lens, ctx["tasks"], id0, self.opt)
+        with span("pe/rescue"):
+            ctx["res_dev"] = dispatch_rescue_tasks(
+                self.didx, batch.seqs, batch.lens, ctx["tasks"], id0,
+                self.opt)
         return ctx
 
     def _pe_hist(self, ctx: dict) -> np.ndarray:
@@ -668,24 +683,26 @@ class Aligner:
     def _pe_stage_b(self, ctx: dict) -> str:
         """PE finish, part B: download the rescue results (blocks on the
         device) and run the native pairing/flags/TLEN/SAM replay."""
-        batch = ctx["batch"]
-        tasks = ctx["tasks"]
-        n_t = len(tasks)
-        tasks_p = res_p = None
-        if n_t:
-            res_h = np.ascontiguousarray(
-                ctx["res_dev"].cpu().numpy(), np.int32)
-            tasks_p = tasks.ctypes.data_as(C.c_void_p)
-            res_p = res_h.ctypes.data_as(C.c_void_p)
-        out_len = C.c_int64(0)
-        ptr = self.oracle._lib.tb_finish_pe_sam(
-            self.oracle._h, C.byref(ctx["copt"]), ctx["seqs_h"],
-            ctx["lens_h"], ctx["names"], ctx["quals"], batch.n, ctx["seqs_h"].shape[1],
-            ctx["flat_h"], ctx["n_h"], ctx["lrep_h"],
-            ctx["hist_h"].ctypes.data_as(C.c_void_p), self.opt.max_ins,
-            tasks_p, res_p, n_t, ctx["id0"], self.rg_id.encode(),
-            C.byref(out_len))
-        return C.string_at(ptr, out_len.value).decode()
+        with span("pe/sam"):
+            batch = ctx["batch"]
+            tasks = ctx["tasks"]
+            n_t = len(tasks)
+            tasks_p = res_p = None
+            if n_t:
+                with synced():
+                    res_h = np.ascontiguousarray(
+                        ctx["res_dev"].cpu().numpy(), np.int32)
+                tasks_p = tasks.ctypes.data_as(C.c_void_p)
+                res_p = res_h.ctypes.data_as(C.c_void_p)
+            out_len = C.c_int64(0)
+            ptr = self.oracle._lib.tb_finish_pe_sam(
+                self.oracle._h, C.byref(ctx["copt"]), ctx["seqs_h"],
+                ctx["lens_h"], ctx["names"], ctx["quals"], batch.n,
+                ctx["seqs_h"].shape[1], ctx["flat_h"], ctx["n_h"],
+                ctx["lrep_h"], ctx["hist_h"].ctypes.data_as(C.c_void_p),
+                self.opt.max_ins, tasks_p, res_p, n_t, ctx["id0"],
+                self.rg_id.encode(), C.byref(out_len))
+            return C.string_at(ptr, out_len.value).decode()
 
     def sam_header(self, extra_pg: str = "tpubwa") -> str:
         lines = [f"@SQ\tSN:{a.name}\tLN:{a.length}" for a in self.idx.anns]
@@ -743,6 +760,13 @@ def _pack(st: dict, l_rep: torch.Tensor, R: int, cap: int) -> torch.Tensor:
     counts = ne.to(torch.int32) | (ovf.to(torch.int32) << 10) | \
         (l_rep.to(torch.int32) << 11)
     return torch.cat([counts, rows.reshape(-1)])
+
+
+def _download(dev: torch.Tensor) -> np.ndarray:
+    """worker1's packed buffer on the host: the one blocking download of
+    a tier-1 call's result."""
+    with span("download"), synced():
+        return dev.cpu().numpy()
 
 
 def _slice_batch(batch: ReadBatch, i: int, j: int) -> ReadBatch:

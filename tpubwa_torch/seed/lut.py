@@ -44,6 +44,7 @@ from ..index.builder import FMIndex
 from ..index.device import DeviceIndex, backward_ext, sa_lookup
 from ..ops.window import shift_left, text_window_asc, text_window_desc
 from ..utils.files import write_atomic
+from ..utils.profiling import host_any
 from .device import _emit_mask
 
 BIG = 2**30
@@ -437,7 +438,7 @@ def _walk_lut(didx: DeviceIndex, lut: KmerLUT, seqs: torch.Tensor,
     it = 0
     st = (kd, sd, bd, dvalid & fm_f[srcc],
           torch.zeros((D,), dtype=torch.bool, device=seqs.device))
-    while it < L and bool(st[3].any()):
+    while it < L and host_any(st[3]):
         st = fm_body(*fm_body(*st))
         it += 2
     kd, sd, bd, _, sad = st
